@@ -1,10 +1,13 @@
 """Command-line driver: `python -m cdk_torch <cmd> ...`.
 
   python -m cdk_torch list
-  python -m cdk_torch run biharmonic|mpdata|all [--dtype float32]
+  python -m cdk_torch run biharmonic|mpdata|cke|all [--dtype float32]
          [--iters N] [--trials N] [--variant NAME ...] [--json out.json]
          [--set key=value ...] [--preset production] [--device-init]
-         [--device cuda|cpu]
+         [--namelist nested.nml] [--device cuda|cpu]
+
+`--namelist` reads a reference-format nested.nml (cke only); `--set`
+overrides apply on top of it.
 
 `run` exits 1 if any variant fails its verification or crashes.
 """
@@ -36,7 +39,7 @@ def main(argv=None) -> int:
     sub.add_parser("list", help="list kernels and registered variants")
 
     runp = sub.add_parser("run", help="run a kernel benchmark + verification")
-    runp.add_argument("kernel", choices=["biharmonic", "mpdata", "all"])
+    runp.add_argument("kernel", choices=["biharmonic", "mpdata", "cke", "all"])
     # the kernels take float32 and float64
     runp.add_argument("--dtype", default=None, choices=["float32", "float64"])
     runp.add_argument("--iters", type=int, default=10)
@@ -45,6 +48,8 @@ def main(argv=None) -> int:
     runp.add_argument("--json", dest="json_out", default=None)
     runp.add_argument("--set", dest="sets", action="append", default=None,
                       metavar="key=value", help="config field override")
+    runp.add_argument("--namelist", default=None, metavar="PATH",
+                      help="reference-format nested.nml (cke only)")
     runp.add_argument("--preset", default=None, choices=["production"],
                       help="use the production-scale config preset")
     runp.add_argument("--device-init", action="store_true",
@@ -52,6 +57,11 @@ def main(argv=None) -> int:
     runp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
     args = p.parse_args(argv)
+    if args.cmd == "run" and args.namelist:
+        if args.kernel != "cke":
+            p.error("--namelist is for the cke kernel only")
+        if args.preset:
+            p.error("--namelist and --preset each give the whole config")
 
     import cdk_torch.kernels  # noqa: F401  (registers variants)
     from cdk_torch.core import registry
@@ -65,7 +75,11 @@ def main(argv=None) -> int:
 
     from dataclasses import asdict
 
-    from cdk_torch.core.config import production_config, with_overrides
+    from cdk_torch.core.config import (
+        cke_config_from_namelist,
+        production_config,
+        with_overrides,
+    )
     from cdk_torch.harness import driver
     from cdk_torch.harness.specs import get_spec
 
@@ -79,7 +93,9 @@ def main(argv=None) -> int:
         results = driver.run_all(iters=args.iters, trials=args.trials,
                                  dtype=args.dtype, device=args.device)
     else:
-        if args.preset == "production":
+        if args.namelist:
+            cfg = cke_config_from_namelist(args.namelist, **overrides)
+        elif args.preset == "production":
             cfg = with_overrides(production_config(args.kernel), **overrides)
         else:
             cfg = with_overrides(get_spec(args.kernel).default_config(),

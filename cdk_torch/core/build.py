@@ -1,10 +1,13 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by nvcc into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+Every ``csrc/*.cu`` is compiled by its own nvcc, all started together,
+and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/cdk_torch/libcdk_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/cdk_torch/libcdk_torch_<hash>.so *.o
 
 The library goes to ``build/cdk_torch/`` beside the package, at first use,
 named by a hash of the sources and flags, so an edited source is rebuilt
@@ -22,6 +25,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -29,8 +33,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cdk_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 @dataclass(frozen=True)
@@ -52,11 +57,15 @@ def nvcc_path() -> str:
 
 
 def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
 
 
 def build(build_dir: Path = BUILD_DIR) -> Built:
@@ -67,21 +76,32 @@ def build(build_dir: Path = BUILD_DIR) -> Built:
         return Built(out, 0.0, "")
     nvcc = nvcc_path()
     build_dir.mkdir(parents=True, exist_ok=True)
-    # a private name, then an atomic rename: concurrent processes never load
+    # private names, then an atomic rename: concurrent processes never load
     # a half-written library
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+            for src in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+            procs = list(pool.map(_run, (
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(cu, objs))))
+        log = "".join(p.stderr + p.stdout for p in procs)
+        for src, proc in zip(cu, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} (exit "
+                                   f"{proc.returncode}):\n{proc.stderr}{proc.stdout}")
+        proc = _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)])
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{proc.stderr}{proc.stdout}")
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)
-    return Built(out, seconds, proc.stderr + proc.stdout)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return Built(out, time.perf_counter() - t0, log + proc.stderr + proc.stdout)
 
 
 @functools.cache

@@ -92,8 +92,11 @@ class MpdataConfig:
 @dataclass(frozen=True)
 class CkeConfig:
     """MPAS-Ocean nested-loop (CKE) problem (reference nested.nml:1-7,
-    nested_vars.F90:28-36).  Its kernels are not ported yet; the config is
-    here for the namelist reader."""
+    nested_vars.F90:28-36).
+
+    nedges edges, each taking its flux from nadv contributing cells of
+    ncells, over nvertlevels levels; coef3rdorder weights the 3rd-order
+    term and errtol is the reference's per-point relative gate."""
 
     niters: int = 100
     nedges: int = 25600
@@ -169,13 +172,16 @@ def with_overrides(cfg, **kw):
 # Production-scale presets, the JAX package's: ne120 cubed-sphere =
 # 6*120^2 = 86,400 spectral elements; 5,400 of them per device with the
 # E3SM-production 10-tracer set.  The MMF preset batches 8,192 CRM slices
-# (the per-node column count of an MMF run).
+# (the per-node column count of an MMF run).  The MPAS preset is
+# 10x the shipped nested.nml horizontal size.
 PRODUCTION = {
     "biharmonic": lambda: BiharmonicConfig(
         nelemd=5400, qsize=10, dtype="float32", device_init=True
     ),
     "mpdata": lambda: MpdataConfig(nslices=8192, dtype="float32",
                                    device_init=True),
+    "cke": lambda: CkeConfig(nedges=256000, ncells=28000, dtype="float32",
+                             device_init=True),
 }
 
 

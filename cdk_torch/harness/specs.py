@@ -15,6 +15,7 @@ from dataclasses import dataclass, replace as _dc_replace
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from cdk_torch.core import config as cfgmod
 from cdk_torch.core.norms import pointwise_check, rel_l1, rel_l2
@@ -82,7 +83,8 @@ def _verify_mpdata(cfg, out, ref, loose=False, tol=None) -> CheckResult:
 
 
 def _verify_cke(cfg, out, ref, loose=False, tol=None) -> CheckResult:
-    """CKE's gate, for the family's port (its kernels are not ported yet)."""
+    """CKE's gate: per-point relative error at errTol (f64), rel L1 (f32
+    and the loose fast-math gate)."""
     if cfg.dtype == "float64" and not loose:
         # the reference's own per-point check at errTol (nested.F90:267-287)
         n_bad, max_err, lines = pointwise_check(out, ref, cfg.errtol)
@@ -128,8 +130,26 @@ def _loop_mpdata(step2, aux, n):
     return run
 
 
+def _loop_cke(step2, aux, n):
+    """n flux iterations; tracerCur *= cellMask each pass like the
+    reference's forms 2/3 (nested.F90:297-310): idempotent in value, but
+    the tracer of each pass is the product of the one before.  Returns the
+    last flux (zeros for n = 0)."""
+
+    def run(data):
+        tracer = data.tracer
+        flx = torch.zeros_like(data.ntf)
+        for _ in range(n):
+            flx = step2(aux, _dc_replace(data, tracer=tracer))
+            tracer = tracer * data.cell_mask
+        return flx
+
+    return run
+
+
 def _specs() -> dict[str, KernelSpec]:
     from cdk_torch.kernels.biharmonic import problem as bi_problem
+    from cdk_torch.kernels.cke import problem as cke_problem
     from cdk_torch.kernels.mpdata import problem as mp_problem
 
     return {
@@ -140,6 +160,10 @@ def _specs() -> dict[str, KernelSpec]:
         "mpdata": KernelSpec(
             "mpdata", cfgmod.MpdataConfig, mp_problem.init_data,
             _verify_mpdata, lambda c: c.grid_points, _loop_mpdata,
+        ),
+        "cke": KernelSpec(
+            "cke", cfgmod.CkeConfig, cke_problem.init_data,
+            _verify_cke, lambda c: c.grid_points, _loop_cke,
         ),
     }
 

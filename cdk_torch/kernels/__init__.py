@@ -1,5 +1,5 @@
-"""Kernel implementations: biharmonic, mpdata.
+"""Kernel implementations: biharmonic, mpdata, cke.
 
 Importing this package registers all variants in cdk_torch.core.registry."""
 
-from cdk_torch.kernels import biharmonic, mpdata  # noqa: F401
+from cdk_torch.kernels import biharmonic, cke, mpdata  # noqa: F401

@@ -1,0 +1,64 @@
+"""K3: the CKE edge flux by per-(edge, slot) row reads of the masked tracer
+table, one warp per edge with lanes along the levels.
+
+Replaces cdk_tpu/kernels/cke/pallas_rows.py::_kernel under the same variant
+name, `pallas_rows` (experimental, as in the JAX package).  The TPU kernel's
+128-lane level padding and edge-block divisibility are not carried over.
+
+The CUDA kernel is csrc/cke_rows.cu.  Beside it here: `cke_rows_plain`, the
+slot-order gather-accumulate in plain PyTorch, which is the champion
+`gather_peradv`'s own computation (the CPU path, and what the card's kernel
+is compared with: the two are bitwise equal), and the wrapper
+`cke_rows`, which launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cdk_torch.core.registry import register
+from cdk_torch.kernels.cke.gather_peradv import gather_flux as cke_rows_plain
+from cdk_torch.kernels.cke.launch import check_inputs, launch
+from cdk_torch.kernels.cke.problem import CkeData
+from cdk_torch.kernels.cke.reference import coef3_of
+
+
+def cke_rows(cells, c1, c3, t, ntf, adv_mask, coef3: float):
+    """The flux of cke_rows_plain.  CUDA tensors launch the kernel (never
+    anything else); CPU tensors run cke_rows_plain.  Cell indices lie in
+    [0, C)."""
+    e, a = cells.shape
+    c, k = t.shape
+    check_inputs("cke_rows", t.dtype, t.device, cells=(cells, (e, a)),
+                 c1=(c1, (e, a)), c3=(c3, (e, a)), t=(t, (c, k)),
+                 ntf=(ntf, (e, k)), adv_mask=(adv_mask, (e, k)))
+    if t.device.type == "cpu":
+        return cke_rows_plain(cells, c1, c3, t, ntf, adv_mask, coef3)
+    out = torch.empty_like(ntf)
+    launch("cke_rows", "cdk_cke_rows", [cells, c1, c3, t, ntf, adv_mask, out],
+           [e, c, a, k], coef3)
+    cke_rows.launches += 1
+    return out
+
+
+cke_rows.launches = 0  # kernel launches in this process
+
+
+@register(
+    "cke",
+    "pallas_rows",
+    "per-(edge,slot) row reads of the masked tracer table, one warp per "
+    "edge with lanes along the levels, slot-order accumulate (exact; the "
+    "cke_impl2 team-scratch analog)",
+    experimental=True,
+)
+def make_pallas_rows(cfg):
+    c3 = coef3_of(cfg)
+
+    def step(data: CkeData) -> torch.Tensor:
+        return cke_rows(data.adv_cells, data.adv_coefs, data.adv_coefs3,
+                        data.tracer * data.cell_mask, data.ntf,
+                        data.adv_mask, c3)
+
+    return step

@@ -10,16 +10,20 @@ Phases, each printing its result; the first failure exits non-zero:
   2. build    compile cdk_torch/csrc/*.cu with nvcc (sm_90a)
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes (shipped and production),
-              f32 and f64, n = 1 and 4 steps, with the family's gate; both
-              timed with CUDA events
-  4. main     cdk_torch.harness.driver.run_kernel for biharmonic and mpdata:
-              shipped size with host init at f64 (every variant against the
-              in-process reference at 1e-13), and the production preset with
-              device init at f32 (reference and champion)
+              f32 and f64, with the family's gate; both timed with CUDA
+              events.  K1/K2 at n = 1 and 4 steps; the CKE kernels K3, K11,
+              K12 (and its bf16 form) and K13 at the shipped 25600 x 2800 x
+              100, and K3 and K13 also at the production 256000 x 28000 x 100
+  4. main     cdk_torch.harness.driver.run_kernel for biharmonic, mpdata and
+              cke: shipped size with host init at f64 (every variant against
+              the in-process reference at the f64 gate; for cke every
+              registered variant, the experimental ones included), and the
+              production preset with device init at f32 (reference and
+              champion; for cke also pallas_rows and pallas_lanegather)
   5. counts   every kernel's launch counter rose during phase 4
 
-Then one JSON line describing the kernels, and as the last line
-{"ok": true, "device": {...}}.  It imports nothing of JAX.
+Then the total wall time, one JSON line describing the kernels, and as the
+last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -188,9 +192,108 @@ def phase_kernels(dev, card):
     return rows
 
 
+def phase_cke_kernels(dev, card):
+    """K3, K11, K12 and K13 against their plain versions; returns the JSON
+    rows."""
+    import torch
+
+    from cdk_torch.core.config import CkeConfig
+    from cdk_torch.core.norms import pointwise_check
+    from cdk_torch.kernels.cke import problem as cp
+    from cdk_torch.kernels.cke.lanegather import (
+        cke_lanegather,
+        cke_lanegather_plain,
+    )
+    from cdk_torch.kernels.cke.onehot import cke_onehot, cke_onehot_plain
+    from cdk_torch.kernels.cke.reference import coef3_of, fsign1
+    from cdk_torch.kernels.cke.rows import cke_rows, cke_rows_plain
+    from cdk_torch.kernels.cke.staged import (
+        cke_staged,
+        cke_staged_plain,
+        stage_slots,
+    )
+
+    rows = {}
+    shapes = (("shipped", (25600, 2800), ("float32", "float64")),
+              ("production", (256000, 28000), ("float32",)))
+    for label, (nedges, ncells), dtypes in shapes:
+        for dtype in dtypes:
+            cfg = CkeConfig(nedges=nedges, ncells=ncells, dtype=dtype,
+                            device_init=True)
+            d = cp.init_data(cfg, dev)
+            c3 = coef3_of(cfg)
+            t = d.tracer * d.cell_mask
+            edge = (d.adv_coefs, d.adv_coefs3)
+            ef = (d.ntf, d.adv_mask)
+            cases = {"K3": (lambda: cke_rows(d.adv_cells, *edge, t, *ef, c3),
+                            lambda: cke_rows_plain(d.adv_cells, *edge, t, *ef, c3))}
+            trans = (d.adv_cells.T.contiguous(), d.adv_coefs.T.contiguous(),
+                     d.adv_coefs3.T.contiguous(), t.T.contiguous(),
+                     (d.ntf * d.adv_mask).T.contiguous(),
+                     fsign1(d.ntf).T.contiguous())
+            cases["K13"] = (lambda: cke_lanegather(*trans, c3),
+                            lambda: cke_lanegather_plain(*trans, c3))
+            if label == "shipped":
+                staged = stage_slots(t, d.adv_cells, torch.empty(
+                    (cfg.nadv, nedges, cfg.nvertlevels), dtype=t.dtype,
+                    device=dev))
+                cases["K11"] = (lambda: cke_staged(staged, *edge, *ef, c3),
+                                lambda: cke_staged_plain(staged, *edge, *ef, c3))
+                cases["K12"] = (
+                    lambda: cke_onehot(d.adv_cells, *edge, t, *ef, c3),
+                    lambda: cke_onehot_plain(d.adv_cells, *edge, t, *ef, c3))
+                if dtype == "float32":
+                    cases["K12 bf16"] = (
+                        lambda: cke_onehot(d.adv_cells, *edge, t, *ef, c3, True),
+                        lambda: cke_onehot_plain(d.adv_cells, *edge, t, *ef, c3,
+                                                 True))
+            for name, (kernel, plain) in cases.items():
+                out = kernel()
+                ref = plain()
+                torch.cuda.synchronize()
+                if name == "K13":  # (K, E) -> (E, K)
+                    out, ref = out.T, ref.T
+                rel, mae, big = errors(out, ref, "l1")
+                bitwise = torch.equal(out, ref)
+                if name == "K12 bf16":
+                    gate, measure, err = 1e-2, "rel_l1", rel
+                elif dtype == "float64":
+                    # the reference's per-point check; a violation or NaN
+                    # fails it whatever the maximum reads
+                    gate, measure = cfg.errtol, "max_rel"
+                    n_bad, err, _ = pointwise_check(out, ref, gate)
+                    err = err if n_bad == 0 else float("inf")
+                else:
+                    gate, measure, err = 1e-6, "rel_l1", rel
+                ms = timed_ms(kernel, REPS)
+                plain_ms = timed_ms(plain, REPS)
+                ok = (err < gate and big > 0
+                      and bool(torch.isfinite(out).all()))
+                print(f"[3 {name}] {label:10s} {nedges}x{ncells}x"
+                      f"{cfg.nvertlevels} A={cfg.nadv} {dtype:7s}: {measure} "
+                      f"{err:.3e} (gate {gate:g}) max_abs {mae:.3e} of "
+                      f"{big:.3e} bitwise={bitwise}; kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms [{card}]")
+                if not ok:
+                    fail(f"{name} {label} {dtype}: {measure} {err:.3e}")
+                key = name.split()[0]
+                if ((key in ("K3", "K13") and label == "production")
+                        or (key in ("K11", "K12") and name == key
+                            and dtype == "float64")):
+                    rows[key] = dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms)
+                del out, ref
+            del d, t, edge, ef, trans, cases
+            if label == "shipped":
+                del staged
+    return rows
+
+
 def phase_main(dev, card):
+    import cdk_torch.kernels  # noqa: F401  (registers the variants)
+    from cdk_torch.core import registry
     from cdk_torch.core.config import (
         BiharmonicConfig,
+        CkeConfig,
         MpdataConfig,
         production_config,
     )
@@ -203,6 +306,11 @@ def phase_main(dev, card):
          ["reference_jnp", "fused_operator_bd8_resident_x3"]),
         ("mpdata", "production f32", production_config("mpdata"),
          ["reference_jnp", "pallas_xmajor"]),
+        ("cke", "shipped f64", CkeConfig(dtype="float64"),
+         list(registry.variants("cke"))),
+        ("cke", "production f32", production_config("cke"),
+         ["reference_jnp", "gather_peradv", "pallas_rows",
+          "pallas_lanegather"]),
     )
     for kernel, label, cfg, variants in legs:
         t0 = time.perf_counter()
@@ -220,14 +328,21 @@ def phase_main(dev, card):
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     dev, card = phase_device()
     phase_build()
     rows = phase_kernels(dev, card)
+    rows.update(phase_cke_kernels(dev, card))
 
     from cdk_torch.kernels.biharmonic.resident import bd8_resident
+    from cdk_torch.kernels.cke.lanegather import cke_lanegather
+    from cdk_torch.kernels.cke.onehot import cke_onehot
+    from cdk_torch.kernels.cke.rows import cke_rows
+    from cdk_torch.kernels.cke.staged import cke_staged
     from cdk_torch.kernels.mpdata.resident import advect_resident
 
-    wrappers = {"K1": bd8_resident, "K2": advect_resident}
+    wrappers = {"K1": bd8_resident, "K2": advect_resident, "K3": cke_rows,
+                "K11": cke_staged, "K12": cke_onehot, "K13": cke_lanegather}
     for w in wrappers.values():
         w.launches = 0
     phase_main(dev, card)
@@ -244,10 +359,19 @@ def main() -> int:
                    replaces="cdk_tpu/kernels/biharmonic/pallas_bd8.py:56"),
         "K2": dict(name="mpdata_resident", source="cdk_torch/csrc/mpdata_resident.cu",
                    replaces="cdk_tpu/kernels/mpdata/pallas_xmajor.py:122"),
+        "K3": dict(name="cke_rows", source="cdk_torch/csrc/cke_rows.cu",
+                   replaces="cdk_tpu/kernels/cke/pallas_rows.py:46"),
+        "K11": dict(name="cke_staged", source="cdk_torch/csrc/cke_staged.cu",
+                    replaces="cdk_tpu/kernels/cke/staged.py:38"),
+        "K12": dict(name="cke_onehot", source="cdk_torch/csrc/cke_onehot.cu",
+                    replaces="cdk_tpu/kernels/cke/pallas_onehot.py:51"),
+        "K13": dict(name="cke_lanegather", source="cdk_torch/csrc/cke_lanegather.cu",
+                    replaces="cdk_tpu/kernels/cke/pallas_lanegather.py:68"),
     }
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
                     replaces=meta[k]["replaces"], launches=launches[k], **rows[k])
-               for k in ("K1", "K2")]
+               for k in wrappers]
+    print(f"[6 wall] {time.perf_counter() - t0:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

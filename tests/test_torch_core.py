@@ -70,12 +70,15 @@ def test_config_fields_match(name):
 
 
 def test_production_presets_match():
-    for kernel in ("biharmonic", "mpdata"):
+    for kernel in ("biharmonic", "mpdata", "cke"):
         assert (dataclasses.asdict(tconfig.production_config(kernel))
                 == dataclasses.asdict(jconfig.production_config(kernel)))
     cfg = tconfig.production_config("biharmonic")
     assert (cfg.nelemd, cfg.ncol, cfg.dtype, cfg.device_init) == (
         5400, 720, "float32", True)
+    cfg = tconfig.production_config("cke")
+    assert (cfg.nedges, cfg.ncells, cfg.dtype, cfg.device_init) == (
+        256000, 28000, "float32", True)
 
 
 def test_read_namelist_matches(tmp_path):
@@ -123,6 +126,10 @@ def test_registered_flags_match_jax():
     assert names == {
         "biharmonic": ["fused_operator_bd8_resident",
                        "fused_operator_bd8_resident_x3", "reference_jnp"],
+        "cke": ["gather_peradv", "gather_selfold", "onehot_mxu",
+                "onehot_mxu_bf16", "pallas_lanegather", "pallas_onehot",
+                "pallas_onehot_bf16", "pallas_rows", "reference_jnp",
+                "staged_consume"],
         "mpdata": ["pallas_xmajor", "reference_jnp"],
     }
     flags = ("supports_f64", "fast_math", "experimental", "verify_tol",
@@ -199,8 +206,9 @@ def test_build_names_and_refuses_without_nvcc(tmp_path, monkeypatch):
     """The library is named by a hash of the sources; with no nvcc the
     build raises instead of falling back."""
     cu = sorted(tbuild.CSRC.glob("*.cu"))
-    assert [p.name for p in cu] == ["biharmonic_resident.cu",
-                                    "mpdata_resident.cu"]
+    assert [p.name for p in cu] == ["biharmonic_resident.cu", "cke_lanegather.cu",
+                                    "cke_onehot.cu", "cke_rows.cu",
+                                    "cke_staged.cu", "mpdata_resident.cu"]
     assert tbuild._digest(cu) == tbuild._digest(list(cu))
     assert tbuild._digest(cu) != tbuild._digest(cu[:1])
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -208,3 +216,32 @@ def test_build_names_and_refuses_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tbuild.build(tmp_path / "build")
     assert not (tmp_path / "build").exists()
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One nvcc per csrc/*.cu with -c, then one link of the objects into
+    the hashed library; the objects are removed and a second build reuses
+    the library.  A stand-in nvcc records its arguments."""
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!" + sys.executable + "\n"
+        "import sys\n"
+        f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('built')\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    built = tbuild.build(tmp_path / "build")
+    calls = log.read_text().splitlines()
+    cu = sorted(tbuild.CSRC.glob("*.cu"))
+    compiles = [c for c in calls if " -c " in c]
+    assert len(compiles) == len(cu) == len(calls) - 1
+    assert sorted(c.split()[-1] for c in compiles) == sorted(map(str, cu))
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    assert "-shared" in calls[-1] and calls[-1].count(".o") == len(cu)
+    assert built.path.read_text() == "built" and built.seconds > 0
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
+        built.path.name]
+    assert tbuild.build(tmp_path / "build") == tbuild.Built(built.path, 0.0, "")
+    assert len(log.read_text().splitlines()) == len(calls)

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: each hand-written kernel against
-its plain PyTorch version on the card, the shared-memory refusal, and the
-driver's main path through the kernels.  They skip without a CUDA card.
+its plain PyTorch version on the card (K1, K2, and the CKE kernels K3, K11,
+K12, K13 at ragged shapes), the shared-memory refusal, and the driver's
+main path through the kernels.  They skip without a CUDA card.
 
 This file imports no jax, so it runs where the card is (no JAX there):
 
@@ -11,12 +12,23 @@ import numpy as np
 import pytest
 import torch
 
-from cdk_torch.core.config import BiharmonicConfig, MpdataConfig, with_overrides
-from cdk_torch.core.norms import rel_l1, rel_l2
+from cdk_torch.core.config import (
+    BiharmonicConfig,
+    CkeConfig,
+    MpdataConfig,
+    with_overrides,
+)
+from cdk_torch.core.norms import pointwise_check, rel_l1, rel_l2
 from cdk_torch.core.platform import resolve_device
-from cdk_torch.core.registry import UnsupportedConfigError
+from cdk_torch.core.registry import UnsupportedConfigError, variants
 from cdk_torch.harness.driver import run_kernel
 from cdk_torch.kernels.biharmonic import resident as bres
+from cdk_torch.kernels.cke import lanegather as klg
+from cdk_torch.kernels.cke import onehot as koh
+from cdk_torch.kernels.cke import problem as cp
+from cdk_torch.kernels.cke import rows as krows
+from cdk_torch.kernels.cke import staged as kst
+from cdk_torch.kernels.cke.reference import coef3_of, fsign1
 from cdk_torch.kernels.mpdata import problem as mp
 from cdk_torch.kernels.mpdata import resident as mres
 
@@ -88,3 +100,85 @@ def test_driver_runs_through_the_kernels(cuda, kernel, cfg):
                          device=cuda)
     assert results and all(r.ok for r in results), results
     assert wrapper.launches > before
+
+
+def _cke_cases(d, c3):
+    """(name, wrapper, kernel call, plain call, bitwise) for the CKE kernels
+    on one problem; K13's calls return (E, K) like the others."""
+    t = d.tracer * d.cell_mask
+    cells, c1, c3a, ntf, advm = (d.adv_cells, d.adv_coefs, d.adv_coefs3,
+                                 d.ntf, d.adv_mask)
+    e, a = cells.shape
+    staged = kst.stage_slots(t, cells, torch.empty((a, e, t.shape[1]),
+                                                   dtype=t.dtype,
+                                                   device=t.device))
+    trans = (cells.T.contiguous(), c1.T.contiguous(), c3a.T.contiguous(),
+             t.T.contiguous(), (ntf * advm).T.contiguous(),
+             fsign1(ntf).T.contiguous())
+    cases = [
+        ("K3", krows.cke_rows,
+         lambda: krows.cke_rows(cells, c1, c3a, t, ntf, advm, c3),
+         lambda: krows.cke_rows_plain(cells, c1, c3a, t, ntf, advm, c3), True),
+        ("K11", kst.cke_staged,
+         lambda: kst.cke_staged(staged, c1, c3a, ntf, advm, c3),
+         lambda: kst.cke_staged_plain(staged, c1, c3a, ntf, advm, c3), True),
+        ("K12", koh.cke_onehot,
+         lambda: koh.cke_onehot(cells, c1, c3a, t, ntf, advm, c3),
+         lambda: koh.cke_onehot_plain(cells, c1, c3a, t, ntf, advm, c3), False),
+        ("K13", klg.cke_lanegather,
+         lambda: klg.cke_lanegather(*trans, c3).T,
+         lambda: klg.cke_lanegather_plain(*trans, c3).T, True),
+    ]
+    if t.dtype == torch.float32:
+        cases.append((
+            "K12 bf16", koh.cke_onehot,
+            lambda: koh.cke_onehot(cells, c1, c3a, t, ntf, advm, c3, True),
+            lambda: koh.cke_onehot_plain(cells, c1, c3a, t, ntf, advm, c3, True),
+            False))
+    return cases
+
+
+@pytest.mark.parametrize("geom", [(130, 40, 21, 6), (300, 700, 100, 10)])
+@pytest.mark.parametrize("duplicates", [False, True])
+def test_cke_kernels_match_plain(cuda, geom, duplicates):
+    """K3, K11, K12 (and its bf16 form) and K13 against their plain
+    versions at ragged shapes (several of K12's 32-cell blocks), with and
+    without duplicate cells per edge; the counter rises by one per call.
+    K3, K11 and K13 are bitwise equal to plain at f64."""
+    e, c, k, a = geom
+    cfg = with_overrides(CkeConfig(), nedges=e, ncells=c, nvertlevels=k,
+                         nadv=a)
+    host = cp.init_data(cfg)
+    if duplicates:
+        host.adv_cells[:, 1] = host.adv_cells[:, 0]
+    for dtype in (torch.float32, torch.float64):
+        d = host.to(cuda, dtype)
+        c3 = coef3_of(with_overrides(cfg, dtype=str(dtype)[6:]))
+        for name, wrapper, kernel, plain, bitwise in _cke_cases(d, c3):
+            before = wrapper.launches
+            out = kernel()
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1, name
+            ref = plain()
+            assert out.shape == (e, k) and float(ref.abs().max()) > 0
+            if name == "K12 bf16":
+                assert rel_l1(out, ref) < 1e-2, name
+            elif dtype == torch.float64:
+                assert not bitwise or torch.equal(out, ref), name
+                assert pointwise_check(out, ref, cfg.errtol)[0] == 0, name
+            else:
+                assert rel_l1(out, ref) < 1e-6, name
+
+
+def test_driver_runs_cke_through_the_kernels(cuda):
+    """Every registered cke variant, the experimental ones requested
+    explicitly, verifies through the driver; each kernel was launched."""
+    cfg = with_overrides(CkeConfig(), nedges=300, ncells=400, nvertlevels=21,
+                         nadv=6, dtype="float32")
+    wrappers = (krows.cke_rows, kst.cke_staged, koh.cke_onehot,
+                klg.cke_lanegather)
+    before = [w.launches for w in wrappers]
+    results = run_kernel("cke", cfg, variants=list(variants("cke")), iters=2,
+                         trials=1, quiet=True, device=cuda)
+    assert len(results) == 10 and all(r.ok for r in results), results
+    assert all(w.launches > b for w, b in zip(wrappers, before))

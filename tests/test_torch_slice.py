@@ -14,10 +14,11 @@ import pytest
 
 from cdk_torch.core.config import (
     BiharmonicConfig,
+    CkeConfig,
     MpdataConfig,
     with_overrides,
 )
-from cdk_torch.core.registry import get, make_step
+from cdk_torch.core.registry import get, make_step, variants
 from cdk_torch.harness.driver import run_kernel
 from cdk_torch.harness.specs import get_spec
 from cdk_tpu.core import config as jconfig
@@ -28,6 +29,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SMALL = {
     "biharmonic": with_overrides(BiharmonicConfig(), nelemd=8, nlev=4, qsize=2),
     "mpdata": with_overrides(MpdataConfig(), nslices=4, nx=8, nz=12),
+    "cke": with_overrides(CkeConfig(), nedges=130, ncells=40, nvertlevels=21,
+                          nadv=6),
 }
 
 
@@ -45,11 +48,18 @@ EXPECTED = {
                                 "fused_operator_bd8_resident_x3"],
     ("mpdata", "float64"): ["reference_jnp", "pallas_xmajor"],
     ("mpdata", "float32"): ["reference_jnp", "pallas_xmajor"],
+    # the experimental pallas_rows and pallas_lanegather run only when
+    # requested; the bf16 forms have no f64
+    ("cke", "float64"): ["reference_jnp", "gather_peradv", "gather_selfold",
+                         "onehot_mxu", "pallas_onehot", "staged_consume"],
+    ("cke", "float32"): ["reference_jnp", "gather_peradv", "gather_selfold",
+                         "onehot_mxu", "onehot_mxu_bf16", "pallas_onehot",
+                         "pallas_onehot_bf16", "staged_consume"],
 }
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("kernel", ["biharmonic", "mpdata"])
+@pytest.mark.parametrize("kernel", ["biharmonic", "mpdata", "cke"])
 def test_run_kernel_every_variant_ok(kernel, dtype):
     cfg = with_overrides(SMALL[kernel], dtype=dtype)
     results = run_kernel(kernel, cfg, iters=2, trials=1, quiet=True,
@@ -63,6 +73,17 @@ def test_run_kernel_every_variant_ok(kernel, dtype):
         assert r.metrics["slope_min"] <= r.metrics["slope_median"]
 
 
+def test_run_kernel_cke_every_registered_variant():
+    """Requested explicitly, the experimental variants run too (and verify),
+    and the bf16 forms are skipped at f64."""
+    names = list(variants("cke"))
+    results = run_kernel("cke", SMALL["cke"], variants=names, iters=2,
+                         trials=1, quiet=True, device="cpu")
+    assert [r.variant for r in results] == [
+        n for n in names if not n.endswith("_bf16")]
+    assert all(r.ok for r in results), [(r.variant, r.metrics) for r in results]
+
+
 def test_run_kernel_device_init():
     cfg = with_overrides(SMALL["mpdata"], dtype="float32", device_init=True)
     results = run_kernel("mpdata", cfg, variants=["pallas_xmajor"], iters=2,
@@ -74,6 +95,7 @@ def test_run_kernel_device_init():
     ("biharmonic", "fused_operator_bd8_resident", "float64"),
     ("biharmonic", "fused_operator_bd8_resident_x3", "float32"),
     ("mpdata", "pallas_xmajor", "float64"),
+    ("cke", "gather_peradv", "float64"),
 ])
 def test_champion_matches_jax_champion(kernel, champion, dtype):
     """Shipped size: the port's champion output against the JAX package's
@@ -103,15 +125,57 @@ def test_cli_run_mpdata_exits_zero():
     assert "pallas_xmajor" in proc.stdout and "FAILED" not in proc.stdout
 
 
-def test_cli_list_prints_the_five_variants():
+@pytest.fixture(scope="module")
+def listed():
+    """`python -m cdk_torch list` as {kernel: [variant, ...]}."""
     proc = subprocess.run([sys.executable, "-m", "cdk_torch", "list"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    names = [line.split()[0] for line in proc.stdout.splitlines()
-             if line.startswith("  ")]
-    assert names == ["reference_jnp", "fused_operator_bd8_resident",
-                     "fused_operator_bd8_resident_x3", "reference_jnp",
-                     "pallas_xmajor"]
+    out: dict[str, list[str]] = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("  "):
+            out[kernel].append(line.split()[0])
+        else:
+            kernel = line.rstrip(":")
+            out[kernel] = []
+    return out
+
+
+def test_cli_list_prints_the_five_variants(listed):
+    """The biharmonic and mpdata variants, five in all."""
+    assert listed["biharmonic"] + listed["mpdata"] == [
+        "reference_jnp", "fused_operator_bd8_resident",
+        "fused_operator_bd8_resident_x3", "reference_jnp", "pallas_xmajor"]
+
+
+def test_cli_list_shows_the_cke_variants(listed):
+    assert list(listed) == ["biharmonic", "cke", "mpdata"]
+    assert listed["cke"] == [
+        "reference_jnp", "gather_peradv", "gather_selfold", "onehot_mxu",
+        "onehot_mxu_bf16", "pallas_lanegather", "pallas_onehot",
+        "pallas_onehot_bf16", "pallas_rows", "staged_consume"]
+
+
+def test_cli_run_cke_with_namelist_exits_zero():
+    proc = subprocess.run(
+        [sys.executable, "-m", "cdk_torch", "run", "cke", "--namelist",
+         "configs/nested.nml", "--set", "nedges=130", "--set", "ncells=40",
+         "--set", "nvertlevels=21", "--device", "cpu", "--iters", "2",
+         "--trials", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "gather_peradv" in proc.stdout and "FAILED" not in proc.stdout
+
+
+def test_cli_namelist_is_for_cke_alone(capsys):
+    from cdk_torch import cli
+
+    nml = str(ROOT / "configs" / "nested.nml")
+    for argv in (["run", "mpdata", "--namelist", nml],
+                 ["run", "cke", "--namelist", nml, "--preset", "production"]):
+        with pytest.raises(SystemExit):
+            cli.main(argv)
+    assert "--namelist" in capsys.readouterr().err
 
 
 def test_cli_json_and_device_refusal(tmp_path, monkeypatch):
