@@ -1,7 +1,7 @@
 """Command-line driver: `python -m cdk_torch <cmd> ...`.
 
   python -m cdk_torch list
-  python -m cdk_torch run biharmonic|mpdata|cke|all [--dtype float32]
+  python -m cdk_torch run biharmonic|biharmonic_dss|biharmonic_dss2d|mpdata|cke|all [--dtype float32]
          [--iters N] [--trials N] [--variant NAME ...] [--json out.json]
          [--set key=value ...] [--preset production] [--device-init]
          [--namelist nested.nml] [--device cuda|cpu]
@@ -39,7 +39,9 @@ def main(argv=None) -> int:
     sub.add_parser("list", help="list kernels and registered variants")
 
     runp = sub.add_parser("run", help="run a kernel benchmark + verification")
-    runp.add_argument("kernel", choices=["biharmonic", "mpdata", "cke", "all"])
+    runp.add_argument("kernel", choices=["biharmonic", "biharmonic_dss",
+                                        "biharmonic_dss2d", "mpdata", "cke",
+                                        "all"])
     # the kernels take float32 and float64
     runp.add_argument("--dtype", default=None, choices=["float32", "float64"])
     runp.add_argument("--iters", type=int, default=10)

@@ -180,6 +180,14 @@ PRODUCTION = {
     ),
     "mpdata": lambda: MpdataConfig(nslices=8192, dtype="float32",
                                    device_init=True),
+    # the DSS-coupled families share the biharmonic problem and scale
+    # (5400 elements -> a 75x72 torus for the 2-D family)
+    "biharmonic_dss": lambda: BiharmonicConfig(
+        nelemd=5400, qsize=10, dtype="float32", device_init=True
+    ),
+    "biharmonic_dss2d": lambda: BiharmonicConfig(
+        nelemd=5400, qsize=10, dtype="float32", device_init=True
+    ),
     "cke": lambda: CkeConfig(nedges=256000, ncells=28000, dtype="float32",
                              device_init=True),
 }

@@ -1,0 +1,275 @@
+// K14 and K19: nsteps chained DSS biharmonic steps (apply -> DSS -> apply)
+// for every element, in one launch, with the state resident on chip.  K14
+// assembles over the 1-D element ring, K19 over the 2-D (ex, ey) torus.
+//
+// Replaces cdk_tpu/kernels/biharmonic/pallas_dss_resident.py::
+// _dss_resident_kernel (single-chip caller apply_dss_resident) and
+// pallas_dss2d_resident.py::_dss2d_resident_kernel (apply_dss2d_resident).
+// The TPU kernels keep a window of centre groups plus halo groups in VMEM,
+// each 8-element group one (128,128) block-diagonal tile, and run the
+// assembly as masked sublane shifts; here each element's operator is used
+// as it is and the neighbour index is explicit.
+//
+// Design: columns (q, k) are independent and the DSS couples only
+// neighbouring elements of the same column.  One block owns a window of
+// elements and one tile of columns: thread (x, y) holds the 16 GLL values of
+// window element y, column x, in registers for the whole launch.  On the
+// ring the window is B + 2h consecutive elements (indices wrap mod nelemd,
+// so a small ring may appear in the window more than once).  On the torus
+// (e = a*ey + b) it is Bi + 2h element rows of rj elements each: whole rows
+// (rj = ey) where 2h+1 of them fit, as in the TPU kernel, so the j
+// assembly wraps inside the window and only the i assembly consumes halo
+// rows; otherwise a rectangle of Bj + 2h elements per row, with halo in j
+// too.  The i assembly sums the j-summed field, so corners collect all four
+// sharers.  Each step uses up one halo unit per side (the window's edge
+// elements assemble with zeros), so the centre stays exact while
+// nsteps <= h; the host sets h = nsteps.  Each assembly pass exchanges only
+// the boundary points (4 values a thread and side) through shared memory,
+// between two barriers.  The window's operators (and with `precomposed` the
+// squared operators A^2, ring only), split into bf16 hi/lo planes once per
+// block for bf16x3, and the inverse mass sit in dynamic shared memory and
+// are read as warp-wide broadcasts, as in K1.  With `precomposed` the
+// d-carry chain A.D.(A^2.D)^(n-1).A runs n+1 applications per launch
+// instead of 2n.
+//
+// Bound: FMA issue (256 per application per column, 768 for bf16x3) times
+// the window's overcompute (window / centre elements); device memory is
+// touched once per launch (read the window, write the centre).  Tensor
+// cores are a later step.
+
+#include <cuda_runtime.h>
+
+#include "biharmonic_common.cuh"
+
+namespace {
+
+using bih::NP;
+using bih::NPTS;
+constexpr int TILE = 32;        // columns per block (one warp)
+constexpr int MAX_WINDOW = 32;  // window elements at TILE columns
+
+// One assembly pass over window element y, column x: the points P0 +
+// k*STRIDE go to side0 and P3 + k*STRIDE to side3 (k < NP); then the P0
+// points gain element lo's side3 values and the P3 points element hi's side0
+// values (zeros where that neighbour is outside the window).
+template <typename T, int P0, int P3, int STRIDE>
+__device__ __forceinline__ void exchange(T v[NPTS], T* side0, T* side3, int x,
+                                         int y, int tc, int lo, bool has_lo,
+                                         int hi, bool has_hi) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    side0[(y * NP + k) * tc + x] = v[P0 + k * STRIDE];
+    side3[(y * NP + k) * tc + x] = v[P3 + k * STRIDE];
+  }
+  __syncthreads();
+  T from_lo[NP], from_hi[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    from_lo[k] = has_lo ? side3[(lo * NP + k) * tc + x] : T(0);
+    from_hi[k] = has_hi ? side0[(hi * NP + k) * tc + x] : T(0);
+  }
+  __syncthreads();  // every read done before the next pass writes
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    v[P0 + k * STRIDE] += from_lo[k];
+    v[P3 + k * STRIDE] += from_hi[k];
+  }
+}
+
+// The window: on the ring (ex = 1, ey = nelemd) rj = W consecutive elements
+// from b0 = blockIdx.x*center_j - halo_j; on the torus rows a0 + r (mod ex),
+// a0 = bi*center_i - halo_i, each of rj elements b0 + c (mod ey), b0 =
+// bj*center_j - halo_j, where blockIdx.x = bi*nbj + bj.  halo_j = 0 on the
+// torus means whole rows (rj = ey, b0 = 0).
+struct Window {
+  int ex, ey, halo_i, center_i, rj, halo_j, center_j, nbj;
+};
+
+// L, L2 (nelemd,16,16); w (nelemd,16) inverse assembled mass in lane order;
+// q/out (nelemd,16,ncol).  Block (tc, W); the ring's tc is TILE.
+template <typename T, bool X3, bool SQ, bool TORUS>
+__global__ void __launch_bounds__(TILE * MAX_WINDOW)
+dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
+                    const T* __restrict__ w, const T* __restrict__ q,
+                    T* __restrict__ out, int ncol, int nsteps, Window g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int PLANES = X3 ? 2 : 1;
+  const int tc = TORUS ? static_cast<int>(blockDim.x) : TILE;
+  const int W = blockDim.y;
+  const int rj = TORUS ? g.rj : W;
+  const int plane_len = W * NPTS * NPTS;
+  T* ops = reinterpret_cast<T*>(smem);              // [SQ?2:1][PLANES][W][256]
+  T* ws = ops + (SQ ? 2 : 1) * PLANES * plane_len;  // [W][16]
+  T* side0 = ws + W * NPTS;                         // [W][NP][tc] j = 0 / i = 0
+  T* side3 = side0 + W * NP * tc;                   // [W][NP][tc] j = np-1 / i = np-1
+
+  const int bi = TORUS ? blockIdx.x / g.nbj : 0;
+  const int bj = TORUS ? blockIdx.x % g.nbj : blockIdx.x;
+  const int a0 = bi * g.center_i - g.halo_i;
+  const int b0 = bj * g.center_j - g.halo_j;
+  auto wrap = [](int i, int n) {
+    i %= n;
+    return i < 0 ? i + n : i;
+  };
+  auto elem = [&](int y) {
+    if constexpr (TORUS)
+      return wrap(a0 + y / rj, g.ex) * g.ey + wrap(b0 + y % rj, g.ey);
+    else
+      return wrap(b0 + y, g.ey);
+  };
+  const int tid = threadIdx.y * tc + threadIdx.x;
+  for (int i = tid; i < plane_len; i += W * tc) {
+    const size_t src = (size_t)elem(i / (NPTS * NPTS)) * NPTS * NPTS
+                       + i % (NPTS * NPTS);
+    bih::stage<T, X3>(ops, plane_len, i, L[src]);
+    if constexpr (SQ) bih::stage<T, X3>(ops + PLANES * plane_len, plane_len, i, L2[src]);
+  }
+  for (int i = tid; i < W * NPTS; i += W * tc)
+    ws[i] = w[(size_t)elem(i / NPTS) * NPTS + i % NPTS];
+  __syncthreads();
+
+  const int x = threadIdx.x, y = threadIdx.y;
+  const int r = TORUS ? y / rj : 0, cj = TORUS ? y % rj : y;
+  const int c = blockIdx.y * tc + x;
+  const bool live = c < ncol;  // ragged last column tile: zeros, no store
+  const size_t e = elem(y);
+  T v[NPTS];
+#pragma unroll
+  for (int p = 0; p < NPTS; ++p)
+    v[p] = live ? q[(e * NPTS + p) * ncol + c] : T(0);
+
+  const T* A = ops + y * NPTS * NPTS;
+  const T* A2 = A + PLANES * plane_len;
+  const T* wy = ws + y * NPTS;
+
+  // j pass: the j=0 points gain the left neighbour's j=np-1 points, the
+  // j=np-1 points the right neighbour's j=0 points; whole torus rows wrap
+  const bool whole_rows = TORUS && g.halo_j == 0;
+  const bool has_l = cj > 0 || whole_rows, has_r = cj < rj - 1 || whole_rows;
+  const int yl = cj > 0 ? y - 1 : y + rj - 1;
+  const int yr = cj < rj - 1 ? y + 1 : y - rj + 1;
+  // d = DSS(s) * w, as dss_ring_lane / dss2d_lane
+  auto assemble = [&]() {
+    exchange<T, 0, NP - 1, NP>(v, side0, side3, x, y, tc, yl, has_l, yr, has_r);
+    // i pass of the j-summed field: the i=0 points gain the row above's
+    // i=np-1 points, the i=np-1 points the row below's i=0 points
+    if constexpr (TORUS)
+      exchange<T, 0, NPTS - NP, 1>(v, side0, side3, x, y, tc, y - rj, r > 0,
+                                   y + rj, r < W / rj - 1);
+#pragma unroll
+    for (int p = 0; p < NPTS; ++p) v[p] *= wy[p];
+  };
+
+  if constexpr (SQ) {
+    if (nsteps > 0) {
+      bih::apply<T, X3>(A, plane_len, v);
+      assemble();
+      for (int s = 1; s < nsteps; ++s) {
+        bih::apply<T, X3>(A2, plane_len, v);
+        assemble();
+      }
+      bih::apply<T, X3>(A, plane_len, v);
+    }
+  } else {
+    for (int s = 0; s < nsteps; ++s) {
+      bih::apply<T, X3>(A, plane_len, v);
+      assemble();
+      bih::apply<T, X3>(A, plane_len, v);
+    }
+  }
+
+  const bool centre_j = cj >= g.halo_j && cj < g.halo_j + g.center_j && b0 + cj < g.ey;
+  const bool centre_i = !TORUS || (r >= g.halo_i && r < g.halo_i + g.center_i
+                                   && a0 + r < g.ex);
+  if (live && centre_i && centre_j) {
+#pragma unroll
+    for (int p = 0; p < NPTS; ++p) out[(e * NPTS + p) * ncol + c] = v[p];
+  }
+}
+
+// Window sizes.  The ring: MAX_WINDOW elements at TILE columns.  The torus:
+// as many whole rows as fit in MAX_WINDOW elements at TILE columns, or in
+// 2*MAX_WINDOW at TILE/2; where 2*nsteps+1 whole rows do not fit, an 8 x 8
+// rectangle (2*MAX_WINDOW elements at TILE/2), so nsteps <= 3 there.
+template <typename T, bool X3, bool SQ, bool TORUS>
+int launch(const void* L, const void* L2, const void* w, const void* q,
+           void* out, int nelemd, int ncol, int nsteps, int ey, void* stream) {
+  const int h = nsteps;
+  if (nsteps < 0 || nelemd < 1 || ncol < 1 || (TORUS && (ey < 1 || nelemd % ey)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int tc = TILE;
+  Window g{};
+  if (!TORUS) {
+    if (2 * h + 1 > MAX_WINDOW) return static_cast<int>(cudaErrorInvalidValue);
+    const int center = MAX_WINDOW - 2 * h < nelemd ? MAX_WINDOW - 2 * h : nelemd;
+    g = Window{1, nelemd, 0, 1, center + 2 * h, h, center,
+               (nelemd + center - 1) / center};
+  } else {
+    const int ex = nelemd / ey;
+    int rows = MAX_WINDOW / ey;
+    if (rows < 2 * h + 1) {
+      tc = TILE / 2;
+      rows = 2 * MAX_WINDOW / ey;
+    }
+    if (rows >= 2 * h + 1) {
+      const int ci = rows - 2 * h < ex ? rows - 2 * h : ex;
+      g = Window{ex, ey, h, ci, ey, 0, ey, 1};
+    } else {
+      constexpr int SIDE = 8;  // SIDE * SIDE == 2 * MAX_WINDOW
+      if (2 * h + 1 > SIDE) return static_cast<int>(cudaErrorInvalidValue);
+      const int ci = SIDE - 2 * h < ex ? SIDE - 2 * h : ex;
+      const int cj = SIDE - 2 * h < ey ? SIDE - 2 * h : ey;
+      g = Window{ex, ey, h, ci, cj + 2 * h, h, cj, (ey + cj - 1) / cj};
+    }
+  }
+  const int nbi = TORUS ? (g.ex + g.center_i - 1) / g.center_i : 1;
+  const int W = (TORUS ? g.center_i + 2 * h : 1) * g.rj;
+  const size_t smem = sizeof(T) * ((SQ ? 2 : 1) * (X3 ? 2 : 1) * W * NPTS * NPTS
+                                   + W * NPTS + 2 * W * NP * tc);
+  auto kern = dss_resident_kernel<T, X3, SQ, TORUS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(nbi * g.nbj, (ncol + tc - 1) / tc);
+  kern<<<grid, dim3(tc, W), smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(L), static_cast<const T*>(L2),
+      static_cast<const T*>(w), static_cast<const T*>(q), static_cast<T*>(out),
+      ncol, nsteps, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool X3>
+int dispatch(const void* L, const void* L2, const void* w, const void* q,
+             void* out, int nelemd, int ncol, int nsteps, int ey, int sq,
+             void* stream) {
+  if (ey > 0)
+    return sq ? static_cast<int>(cudaErrorInvalidValue)
+              : launch<T, X3, false, true>(L, L2, w, q, out, nelemd, ncol, nsteps, ey, stream);
+  return sq ? launch<T, X3, true, false>(L, L2, w, q, out, nelemd, ncol, nsteps, 0, stream)
+            : launch<T, X3, false, false>(L, L2, w, q, out, nelemd, ncol, nsteps, 0, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// L, L2 (nelemd,16,16) (L2 = L@L, read only with sq), w (nelemd,16),
+// q/out (nelemd,16,ncol), contiguous on one device.  ey = 0 assembles over
+// the ring (nsteps <= 15), ey > 0 over the (nelemd/ey, ey) torus (no sq;
+// nsteps <= 3, or more where 2*nsteps+1 rows of ey elements fit in 64).
+// x3 selects bf16x3 products, sq the precomposed d-carry chain.  Returns
+// cudaGetLastError() after the launch.
+int cdk_dss_resident_f32(const void* L, const void* L2, const void* w,
+                         const void* q, void* out, int nelemd, int ncol,
+                         int nsteps, int ey, int x3, int sq, void* stream) {
+  return x3 ? dispatch<float, true>(L, L2, w, q, out, nelemd, ncol, nsteps, ey, sq, stream)
+            : dispatch<float, false>(L, L2, w, q, out, nelemd, ncol, nsteps, ey, sq, stream);
+}
+
+int cdk_dss_resident_f64(const void* L, const void* L2, const void* w,
+                         const void* q, void* out, int nelemd, int ncol,
+                         int nsteps, int ey, int sq, void* stream) {
+  return dispatch<double, false>(L, L2, w, q, out, nelemd, ncol, nsteps, ey, sq, stream);
+}
+
+}  // extern "C"

@@ -19,22 +19,24 @@
 // memory operand reads that feed it); device memory matters only at the two ends
 // of a run.  The tensor-core form (mma on bf16 hi/lo pairs) is the next step.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "biharmonic_common.cuh"
 
 namespace {
 
-constexpr int NPTS = 16;
+using bih::NPTS;
 constexpr int MAX_TILE = 128;
 
-template <typename T>
+template <typename T, bool X3>
 __global__ void __launch_bounds__(MAX_TILE)
 bd8_resident_kernel(const T* __restrict__ L, const T* __restrict__ q,
                     T* __restrict__ out, int ncol, int nsteps) {
-  __shared__ __align__(16) T Ls[NPTS * NPTS];
+  constexpr int LO = NPTS * NPTS;
+  __shared__ __align__(16) T Ls[(X3 ? 2 : 1) * LO];
   const size_t e = blockIdx.x;
-  for (int i = threadIdx.x; i < NPTS * NPTS; i += blockDim.x)
-    Ls[i] = L[e * NPTS * NPTS + i];
+  for (int i = threadIdx.x; i < LO; i += blockDim.x)
+    bih::stage<T, X3>(Ls, LO, i, L[e * LO + i]);
   __syncthreads();
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
   if (c >= ncol) return;  // ragged last column tile
@@ -44,76 +46,10 @@ bd8_resident_kernel(const T* __restrict__ L, const T* __restrict__ q,
 #pragma unroll
   for (int p = 0; p < NPTS; ++p) v[p] = qe[(size_t)p * ncol];
 
-  for (int s = 0; s < nsteps; ++s) {
-    // re-read L each step: without this fence the compiler hoists all 256
-    // shared loads out of the step loop and spills them from registers
-    asm volatile("" ::: "memory");
-    T w[NPTS];
-#pragma unroll
-    for (int o = 0; o < NPTS; ++o) {
-      T acc = T(0);
-#pragma unroll
-      for (int p = 0; p < NPTS; ++p) acc = fma(Ls[o * NPTS + p], v[p], acc);
-      w[o] = acc;
-    }
-#pragma unroll
-    for (int o = 0; o < NPTS; ++o) v[o] = w[o];
-  }
+  // L is re-read from shared memory each step (bih::apply's fence)
+  for (int s = 0; s < nsteps; ++s) bih::apply<T, X3>(Ls, LO, v);
 
   T* oe = out + e * NPTS * ncol + c;
-#pragma unroll
-  for (int p = 0; p < NPTS; ++p) oe[(size_t)p * ncol] = v[p];
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__global__ void __launch_bounds__(MAX_TILE)
-bd8_resident_x3_kernel(const float* __restrict__ L, const float* __restrict__ q,
-                       float* __restrict__ out, int ncol, int nsteps) {
-  __shared__ __align__(16) float Lhi[NPTS * NPTS];
-  __shared__ __align__(16) float Llo[NPTS * NPTS];
-  const size_t e = blockIdx.x;
-  for (int i = threadIdx.x; i < NPTS * NPTS; i += blockDim.x) {
-    const float l = L[e * NPTS * NPTS + i];
-    const float hi = bf16_round(l);
-    Lhi[i] = hi;
-    Llo[i] = bf16_round(l - hi);
-  }
-  __syncthreads();
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= ncol) return;
-
-  const float* qe = q + e * NPTS * ncol + c;
-  float v[NPTS];
-#pragma unroll
-  for (int p = 0; p < NPTS; ++p) v[p] = qe[(size_t)p * ncol];
-
-  for (int s = 0; s < nsteps; ++s) {
-    asm volatile("" ::: "memory");  // as above: keep L's loads in the step
-    float qh[NPTS], ql[NPTS];
-#pragma unroll
-    for (int p = 0; p < NPTS; ++p) {
-      qh[p] = bf16_round(v[p]);
-      ql[p] = bf16_round(v[p] - qh[p]);
-    }
-#pragma unroll
-    for (int o = 0; o < NPTS; ++o) {
-      // each bf16 x bf16 product is exact in f32; the three sums are
-      // accumulated separately and added as the TPU kernel adds its dots
-      float hh = 0.f, hl = 0.f, lh = 0.f;
-#pragma unroll
-      for (int p = 0; p < NPTS; ++p) {
-        hh = fmaf(Lhi[o * NPTS + p], qh[p], hh);
-        hl = fmaf(Lhi[o * NPTS + p], ql[p], hl);
-        lh = fmaf(Llo[o * NPTS + p], qh[p], lh);
-      }
-      v[o] = (hh + hl) + lh;
-    }
-  }
-
-  float* oe = out + e * NPTS * ncol + c;
 #pragma unroll
   for (int p = 0; p < NPTS; ++p) oe[(size_t)p * ncol] = v[p];
 }
@@ -137,11 +73,11 @@ int cdk_bd8_resident_f32(const void* L, const void* q, void* out, int nelemd,
   const dim3 grid = grid_of(nelemd, ncol, &threads);
   auto st = static_cast<cudaStream_t>(stream);
   if (x3)
-    bd8_resident_x3_kernel<<<grid, threads, 0, st>>>(
+    bd8_resident_kernel<float, true><<<grid, threads, 0, st>>>(
         static_cast<const float*>(L), static_cast<const float*>(q),
         static_cast<float*>(out), ncol, nsteps);
   else
-    bd8_resident_kernel<float><<<grid, threads, 0, st>>>(
+    bd8_resident_kernel<float, false><<<grid, threads, 0, st>>>(
         static_cast<const float*>(L), static_cast<const float*>(q),
         static_cast<float*>(out), ncol, nsteps);
   return static_cast<int>(cudaGetLastError());
@@ -151,7 +87,7 @@ int cdk_bd8_resident_f64(const void* L, const void* q, void* out, int nelemd,
                          int ncol, int nsteps, void* stream) {
   int threads;
   const dim3 grid = grid_of(nelemd, ncol, &threads);
-  bd8_resident_kernel<double><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  bd8_resident_kernel<double, false><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(L), static_cast<const double*>(q),
       static_cast<double*>(out), ncol, nsteps);
   return static_cast<int>(cudaGetLastError());

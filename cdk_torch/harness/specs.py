@@ -2,7 +2,8 @@
 kernel's own verification idiom (the reference uses a different norm per
 miniapp):
 
-  biharmonic — relative L2 on qtens   (compute_l2norm, biharmonic:69-73)
+  biharmonic — relative L2 on qtens   (compute_l2norm, biharmonic:69-73);
+               the DSS families the same norm with an f32 default of 1e-6
   mpdata     — relative L1 on f, flux (compare, advect…F90:679-684)
   cke        — per-point relative err vs errTol (nested.F90:267-287)
 
@@ -61,6 +62,13 @@ def _verify_biharmonic(cfg, out, ref, loose=False, f32_tol=2e-5,
         lines=[f" L2 norm: {l2: .6E}  (tol {gate:g})"],
         metrics={"rel_l2": l2},
     )
+
+
+def _verify_biharmonic_dss(cfg, out, ref, loose=False,
+                           tol=None) -> CheckResult:
+    """The DSS families' gate: the biharmonic norm with an f32 default of
+    1e-6 for the exact forms; the bf16x3 forms register verify_tol 5e-5."""
+    return _verify_biharmonic(cfg, out, ref, loose, f32_tol=1e-6, tol=tol)
 
 
 def _verify_mpdata(cfg, out, ref, loose=False, tol=None) -> CheckResult:
@@ -156,6 +164,16 @@ def _specs() -> dict[str, KernelSpec]:
         "biharmonic": KernelSpec(
             "biharmonic", cfgmod.BiharmonicConfig, bi_problem.init_data,
             _verify_biharmonic, lambda c: c.grid_points, _loop_biharmonic,
+        ),
+        # the two-application biharmonic with the ring and the torus DSS;
+        # same problem data and config as the single application
+        "biharmonic_dss": KernelSpec(
+            "biharmonic_dss", cfgmod.BiharmonicConfig, bi_problem.init_data,
+            _verify_biharmonic_dss, lambda c: c.grid_points, _loop_biharmonic,
+        ),
+        "biharmonic_dss2d": KernelSpec(
+            "biharmonic_dss2d", cfgmod.BiharmonicConfig, bi_problem.init_data,
+            _verify_biharmonic_dss, lambda c: c.grid_points, _loop_biharmonic,
         ),
         "mpdata": KernelSpec(
             "mpdata", cfgmod.MpdataConfig, mp_problem.init_data,

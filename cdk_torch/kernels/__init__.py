@@ -1,4 +1,4 @@
-"""Kernel implementations: biharmonic, mpdata, cke.
+"""Kernel implementations: biharmonic (and its DSS families), mpdata, cke.
 
 Importing this package registers all variants in cdk_torch.core.registry."""
 

@@ -1,2 +1,12 @@
-from cdk_torch.kernels.biharmonic import operator, problem, reference, resident  # noqa: F401
+from cdk_torch.kernels.biharmonic import (  # noqa: F401
+    dss,
+    dss2d,
+    dss2d_resident,
+    dss2d_rowchain,
+    dss_resident,
+    operator,
+    problem,
+    reference,
+    resident,
+)
 from cdk_torch.kernels.biharmonic.problem import BiharmonicData, init_data  # noqa: F401

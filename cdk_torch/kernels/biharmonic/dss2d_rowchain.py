@@ -1,0 +1,288 @@
+"""K15-K18: the t-carry rowchain of the torus-DSS biharmonic, carrying
+t = jpass(A q) between steps:
+
+    t_0     = jpass(A q)                    rowchain_bridge_in   (K15)
+    t_{m+1} = jpass(F(ipass(t_m)·w))        rowchain_step        (K16; depth k: K18)
+    q_N     = A(ipass(t_{N-1})·w)           rowchain_bridge_out  (K17)
+
+F is A·A, or one application of the precomposed A² (`_sq` forms).
+Replaces cdk_tpu/kernels/biharmonic/pallas_dss2d_resident.py::
+_rowchain_bridge_in_kernel, _rowchain_step_kernel,
+_rowchain_bridge_out_kernel and _rowchain_stepk_blocked_kernel, under the
+same variant names (`fused_operator_rowchain`, `_x3`, `_sq`, `_sq_x3`).
+The x3 forms split the operator they apply into bf16 hi/lo parts: A in the
+bridges, A² (or A) in the step.
+
+The CUDA kernels are csrc/biharmonic_dss2d_rowchain.cu.  Beside them here:
+the plain PyTorch version of each (the CPU path, and what the kernels are
+compared with on the card) and the three wrappers, each with a launch
+counter; `rowchain_step.depth_launches` also counts the step's launches by
+depth.  `step` is bridge-in then bridge-out; `loop(data, n)` is bridge-in,
+n-1 t-steps in launches of `loop_depth` steps and one for the remainder,
+then bridge-out.  The TPU's window geometry, VMEM budgets, the ±13/±12-row
+shift masks and the `CDK_DSS2D*`/`CDK_ROWCHAIN_KMAX` hooks are not ported;
+the dist entry points (`step_t_padded`, `bridge_out_padded`,
+`stepk_padded_factory`) wait for the dist port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from cdk_torch.core import build
+from cdk_torch.core.registry import register
+from cdk_torch.kernels.biharmonic.dss2d import (
+    _edge_pair_sum,
+    dss2d_weights,
+    torus_shape,
+)
+from cdk_torch.kernels.biharmonic.operator import (
+    apply_operator,
+    build_element_operator,
+    precompose_operator,
+)
+from cdk_torch.kernels.biharmonic.problem import (
+    BiharmonicData,
+    from_lane_layout,
+    to_lane_layout,
+)
+from cdk_torch.kernels.biharmonic.reference import rrearth_as
+
+NPG = 4
+NPTS = NPG * NPG
+PRECISIONS = ("highest", "bf16x3")
+# t-steps per step launch in `loop`, the fastest measured at production f32
+# on the H100 (PERF.md §6), us per step at depth 1 / 2 / 3 / 4 / 8:
+#   A·A      806.8 / 779.1 / 778.4 / 777.8 / 777.2
+#   x3      1292.3 / 1252.6 / 1252.2 / 1250.9 / 1250.2
+#   sq       457.4 / 433.0 / 431.4 / 431.1 / 430.1
+#   sq_x3    549.3 / 566.0 / 565.7 / 565.4 / 565.5
+# so depth 4, except the precomposed bf16x3 form at depth 1
+DEPTH = 4
+
+
+def loop_depth(precision: str, precomposed: bool) -> int:
+    """The step depth `loop` launches with for a form."""
+    return 1 if (precision, precomposed) == ("bf16x3", True) else DEPTH
+
+
+BRIDGE_IN, STEP, BRIDGE_OUT = 0, 1, 2  # the kernels' modes
+
+
+def _prec(precision: str) -> str:
+    return "high" if precision == "bf16x3" else "highest"
+
+
+def _jpass(s: torch.Tensor, ex: int, ey: int) -> torch.Tensor:
+    """j-direction edge sum of a lane-layout (e, 16, ncol) field."""
+    e, npts, ncol = s.shape
+    return _edge_pair_sum(s.reshape(ex, ey, NPG, NPG, ncol), 1, 3).reshape(
+        e, npts, ncol)
+
+
+def _ipass_w(t: torch.Tensor, w: torch.Tensor, ex: int, ey: int) -> torch.Tensor:
+    """i-direction edge sum of the j-summed field, times the inverse mass
+    w (e, 16)."""
+    e, npts, ncol = t.shape
+    summed = _edge_pair_sum(t.reshape(ex, ey, NPG, NPG, ncol), 0, 2)
+    return summed.reshape(e, npts, ncol) * w[..., None]
+
+
+def rowchain_bridge_in_plain(L, q_lane, ex, ey, precision="highest"):
+    return _jpass(apply_operator(L, q_lane, _prec(precision)), ex, ey)
+
+
+def rowchain_step_plain(F, w, t, ex, ey, nsteps=1, precision="highest",
+                        squared=False):
+    """nsteps t-steps; F is A (applied twice) or, with squared, A²."""
+    prec = _prec(precision)
+    for _ in range(nsteps):
+        u = apply_operator(F, _ipass_w(t, w, ex, ey), prec)
+        if not squared:
+            u = apply_operator(F, u, prec)
+        t = _jpass(u, ex, ey)
+    return t
+
+
+def rowchain_bridge_out_plain(L, w, t, ex, ey, precision="highest"):
+    return apply_operator(L, _ipass_w(t, w, ex, ey), _prec(precision))
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library()
+    head = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    lib.cdk_rowchain_f32.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.cdk_rowchain_f64.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p]
+    lib.cdk_rowchain_f32.restype = ctypes.c_int
+    lib.cdk_rowchain_f64.restype = ctypes.c_int
+    return lib
+
+
+def _check(op, w, x, ex, ey, precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+    ts = [op, x] + ([] if w is None else [w])
+    if x.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != x.dtype for t in ts):
+        raise TypeError("operator, w and field must share float32 or float64")
+    if precision == "bf16x3" and x.dtype != torch.float32:
+        raise TypeError("bf16x3 is a float32 form")
+    if any(t.device != x.device for t in ts):
+        raise ValueError("operator, w and field must lie on one device")
+    e = ex * ey
+    if (x.dim() != 3 or x.shape[:2] != (e, NPTS) or op.shape != (e, NPTS, NPTS)
+            or (w is not None and w.shape != (e, NPTS))):
+        raise ValueError(f"want an ({ex}x{ey}) torus: operator (e,{NPTS},{NPTS}),"
+                         f" w (e,{NPTS}), field (e,{NPTS},ncol) with e={e}; got "
+                         f"{tuple(op.shape)}, {tuple(x.shape)}")
+
+
+def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what):
+    """One launch; w is None for bridge-in, which reads no inverse mass."""
+    if not all(t is None or t.is_contiguous() for t in (op, w, x)):
+        raise ValueError(f"{what} needs contiguous operands")
+    ncol = x.shape[2]
+    out = torch.empty_like(x)
+    tmp = torch.empty_like(x) if nsteps > 1 else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (mode, op.data_ptr(), None if w is None else w.data_ptr(),
+                x.data_ptr(), out.data_ptr(),
+                None if tmp is None else tmp.data_ptr(), ex, ey, ncol, nsteps)
+        if x.dtype == torch.float32:
+            err = _lib().cdk_rowchain_f32(*args, int(precision == "bf16x3"),
+                                          int(squared), stream)
+        else:
+            err = _lib().cdk_rowchain_f64(*args, int(squared), stream)
+    build.check(err, what)
+    return out
+
+
+def rowchain_bridge_in(L, q_lane, ex, ey, precision="highest"):
+    """t_0 = jpass(A q).  CUDA tensors launch the kernel (never anything
+    else); CPU tensors run the plain version."""
+    _check(L, None, q_lane, ex, ey, precision)
+    if q_lane.device.type == "cpu":
+        return rowchain_bridge_in_plain(L, q_lane, ex, ey, precision)
+    out = _launch(BRIDGE_IN, L, None, q_lane, ex, ey, 1, precision, False,
+                  "rowchain_bridge_in")
+    rowchain_bridge_in.launches += 1
+    return out
+
+
+def rowchain_step(F, w, t, ex, ey, nsteps=1, precision="highest",
+                  squared=False):
+    """nsteps chained t-steps in one launch (depth nsteps >= 1)."""
+    _check(F, w, t, ex, ey, precision)
+    if nsteps < 1:
+        raise ValueError(f"nsteps must be >= 1 (got {nsteps})")
+    if t.device.type == "cpu":
+        return rowchain_step_plain(F, w, t, ex, ey, nsteps, precision, squared)
+    out = _launch(STEP, F, w, t, ex, ey, nsteps, precision, squared,
+                  "rowchain_step")
+    rowchain_step.launches += 1
+    rowchain_step.depth_launches[nsteps] = (
+        rowchain_step.depth_launches.get(nsteps, 0) + 1)
+    return out
+
+
+def rowchain_bridge_out(L, w, t, ex, ey, precision="highest"):
+    """q = A(ipass(t)·w)."""
+    _check(L, w, t, ex, ey, precision)
+    if t.device.type == "cpu":
+        return rowchain_bridge_out_plain(L, w, t, ex, ey, precision)
+    out = _launch(BRIDGE_OUT, L, w, t, ex, ey, 1, precision, False,
+                  "rowchain_bridge_out")
+    rowchain_bridge_out.launches += 1
+    return out
+
+
+# kernel launches in this process
+rowchain_bridge_in.launches = 0
+rowchain_step.launches = 0
+rowchain_step.depth_launches = {}  # depth -> launches
+rowchain_bridge_out.launches = 0
+
+
+def _rowchain_forms(cfg, precision: str, precomposed: bool = False):
+    rr = rrearth_as(cfg)
+    ex, ey = torus_shape(cfg.nelemd)
+    depth = loop_depth(precision, precomposed)
+
+    def prepare(data: BiharmonicData):
+        L = build_element_operator(data.dvv, data.dinv, data.spheremp,
+                                   data.tensorvisc, rr)
+        w = dss2d_weights(data.spheremp, ex, ey).reshape(cfg.nelemd, NPTS)
+        return L, w.contiguous(), precompose_operator(L) if precomposed else L
+
+    def step(aux, data: BiharmonicData) -> torch.Tensor:
+        L, w, _ = aux
+        t = rowchain_bridge_in(L, to_lane_layout(data.qtens), ex, ey, precision)
+        return from_lane_layout(
+            rowchain_bridge_out(L, w, t, ex, ey, precision), cfg)
+
+    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+        """bridge-in, n-1 t-steps (launches of `depth`, then the
+        remainder), bridge-out: n steps for n >= 1."""
+        if n < 1:
+            raise ValueError(f"the rowchain loop takes n >= 1 steps (got {n})")
+        L, w, F = prepare(data)
+        t = rowchain_bridge_in(L, to_lane_layout(data.qtens), ex, ey, precision)
+        nt = n - 1
+        while nt > 0:
+            k = min(depth, nt)
+            t = rowchain_step(F, w, t, ex, ey, k, precision, precomposed)
+            nt -= k
+        return from_lane_layout(
+            rowchain_bridge_out(L, w, t, ex, ey, precision), cfg)
+
+    return {"prepare": prepare, "step": step, "loop": loop}
+
+
+@register(
+    "biharmonic_dss2d",
+    "fused_operator_rowchain",
+    "t-carry rowchain: carry the j-assembled first-application output "
+    "between steps, so each step kernel reads only its element row and the "
+    "two rows beside it (exact products)",
+)
+def make_dss2d_rowchain(cfg):
+    return _rowchain_forms(cfg, "highest")
+
+
+@register(
+    "biharmonic_dss2d",
+    "fused_operator_rowchain_x3",
+    "t-carry rowchain with 3-pass bf16 hi/lo products accumulated in f32",
+    supports_f64=False,
+    verify_tol=5e-5,
+)
+def make_dss2d_rowchain_x3(cfg):
+    return _rowchain_forms(cfg, "bf16x3")
+
+
+@register(
+    "biharmonic_dss2d",
+    "fused_operator_rowchain_sq",
+    "rowchain with the precomposed squared operator: the t-step's two "
+    "adjacent applications (t' = jp(A(A(ip(t)w)))) become one application "
+    "of A² (formed once at prepare; exact products)",
+)
+def make_dss2d_rowchain_sq(cfg):
+    return _rowchain_forms(cfg, "highest", precomposed=True)
+
+
+@register(
+    "biharmonic_dss2d",
+    "fused_operator_rowchain_sq_x3",
+    "precomposed-A² rowchain with 3-pass bf16 hi/lo products (the "
+    "production champion's form)",
+    supports_f64=False,
+    verify_tol=5e-5,
+)
+def make_dss2d_rowchain_sq_x3(cfg):
+    return _rowchain_forms(cfg, "bf16x3", precomposed=True)

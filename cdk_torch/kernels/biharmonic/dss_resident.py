@@ -1,0 +1,225 @@
+"""K14: the resident ring-DSS biharmonic chain — k chained steps
+(apply → ring DSS → apply) of every element in one kernel launch.
+
+Replaces cdk_tpu/kernels/biharmonic/pallas_dss_resident.py::
+_dss_resident_kernel (single-chip caller `apply_dss_resident`), under the
+same variant names:
+
+  fused_operator_bd8_resident        "highest": exact f32 or f64 products
+  fused_operator_bd8_resident_x3     "bf16x3" products (f32 only)
+  fused_operator_bd8_resident_sq     the precomposed d-carry chain
+                                     A·D·(A²·D)^(k-1)·A, "highest"
+  fused_operator_bd8_resident_sq_x3  the same with bf16x3 products
+
+The CUDA kernel is csrc/biharmonic_dss_resident.cu: a window of elements
+with h = k halo elements per side, so one launch takes at most MAX_STEPS
+steps.  Its torus switch is K19 (`dss2d_resident.py`), which shares
+`validate` and `launch` from here.  Beside it here: `dss_resident_plain`,
+the same function in plain PyTorch over the whole field (the CPU path, and
+what the kernel is compared with on the card), and the wrapper
+`dss_resident`.  `loop(data,
+n)` chains launches of DEPTH steps and one launch for the remainder.  The
+TPU's grouping, window geometry and VMEM budgets (`_pick_geometry`,
+`_pick_k`, `KMAX`, the `CDK_DSS*` hooks, the 128-lane pad) are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from cdk_torch.core import build
+from cdk_torch.core.registry import register
+from cdk_torch.kernels.biharmonic.dss import dss_ring_lane, dss_weights
+from cdk_torch.kernels.biharmonic.operator import (
+    apply_operator,
+    build_element_operator,
+    precompose_operator,
+)
+from cdk_torch.kernels.biharmonic.problem import (
+    BiharmonicData,
+    from_lane_layout,
+    to_lane_layout,
+)
+from cdk_torch.kernels.biharmonic.reference import rrearth_as
+
+NPG = 4
+NPTS = NPG * NPG
+PRECISIONS = ("highest", "bf16x3")
+MAX_STEPS = 15  # 2·steps + 1 window elements <= the kernel's 32
+# steps per launch in `loop`: the fastest of 2-6 at production on the H100
+# for the champion (PERF.md §6); deeper windows pay (B+2k)/B overcompute
+DEPTH = 4
+
+
+def dss_resident_plain(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
+                       nsteps: int, precision: str = "highest",
+                       L2: torch.Tensor | None = None) -> torch.Tensor:
+    """nsteps chained ring-DSS steps over the whole field.  L: (e, 16, 16);
+    w: (e, 16) inverse assembled mass in lane order (p = i*np + j); q_lane:
+    (e, 16, ncol).  With L2 (= A², `precompose_operator`) the d-carry chain
+    A·D·(A²·D)^(nsteps-1)·A."""
+    prec = "high" if precision == "bf16x3" else "highest"
+    w3 = w.reshape(-1, NPG, NPG)
+
+    def dss(s):
+        return dss_ring_lane(s, w3, NPG)
+
+    q = q_lane
+    if L2 is None:
+        for _ in range(nsteps):
+            q = apply_operator(L, dss(apply_operator(L, q, prec)), prec)
+        return q
+    if nsteps == 0:
+        return q
+    d = dss(apply_operator(L, q, prec))
+    for _ in range(nsteps - 1):
+        d = dss(apply_operator(L2, d, prec))
+    return apply_operator(L, d, prec)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library()
+    ptrs = [ctypes.c_void_p] * 5
+    lib.cdk_dss_resident_f32.argtypes = ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.cdk_dss_resident_f64.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.cdk_dss_resident_f32.restype = ctypes.c_int
+    lib.cdk_dss_resident_f64.restype = ctypes.c_int
+    return lib
+
+
+def validate(L, w, q_lane, nsteps, precision, L2, max_steps=MAX_STEPS):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
+    if not 0 <= nsteps <= max_steps:
+        raise ValueError(f"nsteps must be in [0, {max_steps}] (got {nsteps})")
+    ops = [L, w] + ([] if L2 is None else [L2])
+    if q_lane.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != q_lane.dtype for t in ops):
+        raise TypeError("L, w, L2 and q_lane must share float32 or float64")
+    if precision == "bf16x3" and q_lane.dtype != torch.float32:
+        raise TypeError("bf16x3 is a float32 form")
+    if any(t.device != q_lane.device for t in ops):
+        raise ValueError("L, w, L2 and q_lane must lie on one device")
+    e = q_lane.shape[0]
+    if (q_lane.dim() != 3 or q_lane.shape[1] != NPTS
+            or L.shape != (e, NPTS, NPTS) or w.shape != (e, NPTS)
+            or (L2 is not None and L2.shape != L.shape)):
+        raise ValueError(f"want L, L2 (e,{NPTS},{NPTS}), w (e,{NPTS}) and "
+                         f"q_lane (e,{NPTS},ncol); got {tuple(L.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(q_lane.shape)}")
+
+
+def launch(L, w, q_lane, nsteps, precision, L2, ey, what):
+    """One launch of csrc/biharmonic_dss_resident.cu: the ring (ey = 0) or
+    the torus with rows of ey elements; arguments already validated."""
+    sq = L2 is not None
+    l2 = L2 if sq else L
+    if not all(t.is_contiguous() for t in (L, l2, w, q_lane)):
+        raise ValueError(f"{what} needs contiguous operands")
+    e, _, ncol = q_lane.shape
+    out = torch.empty_like(q_lane)
+    with torch.cuda.device(q_lane.device):
+        stream = torch.cuda.current_stream(q_lane.device).cuda_stream
+        args = (L.data_ptr(), l2.data_ptr(), w.data_ptr(), q_lane.data_ptr(),
+                out.data_ptr(), e, ncol, nsteps, ey)
+        if q_lane.dtype == torch.float32:
+            err = _lib().cdk_dss_resident_f32(
+                *args, int(precision == "bf16x3"), int(sq), stream)
+        else:
+            err = _lib().cdk_dss_resident_f64(*args, int(sq), stream)
+    build.check(err, what)
+    return out
+
+
+def dss_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
+                 nsteps: int, precision: str = "highest",
+                 L2: torch.Tensor | None = None) -> torch.Tensor:
+    """Run nsteps chained steps.  CUDA tensors launch the kernel (never
+    anything else); CPU tensors run dss_resident_plain."""
+    validate(L, w, q_lane, nsteps, precision, L2)
+    if q_lane.device.type == "cpu":
+        return dss_resident_plain(L, w, q_lane, nsteps, precision, L2)
+    out = launch(L, w, q_lane, nsteps, precision, L2, 0, "dss_resident")
+    dss_resident.launches += 1
+    return out
+
+
+dss_resident.launches = 0  # kernel launches in this process
+
+
+def _dss_resident_forms(cfg, precision: str, precomposed: bool = False):
+    rr = rrearth_as(cfg)
+
+    def prepare(data: BiharmonicData):
+        L = build_element_operator(data.dvv, data.dinv, data.spheremp,
+                                   data.tensorvisc, rr)
+        w = dss_weights(data.spheremp).reshape(cfg.nelemd, NPTS).contiguous()
+        return L, w, precompose_operator(L) if precomposed else None
+
+    def _run(aux, qtens, n):
+        L, w, L2 = aux
+        q = to_lane_layout(qtens)
+        while n > 0:
+            k = min(DEPTH, n)
+            q = dss_resident(L, w, q, k, precision, L2)
+            n -= k
+        return from_lane_layout(q, cfg)
+
+    def step(aux, data: BiharmonicData) -> torch.Tensor:
+        return _run(aux, data.qtens, 1)
+
+    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+        """n steps: launches of DEPTH steps, then the remainder; the
+        layout changes once at each end."""
+        return _run(prepare(data), data.qtens, n)
+
+    return {"prepare": prepare, "step": step, "loop": loop}
+
+
+@register(
+    "biharmonic_dss",
+    "fused_operator_bd8_resident",
+    "resident DSS chain: k full steps (apply-DSS-apply) in one kernel over "
+    "deep-halo element-ring windows, the state in registers; device memory "
+    "once per k steps (exact products)",
+)
+def make_dss_bd8_resident(cfg):
+    return _dss_resident_forms(cfg, "highest")
+
+
+@register(
+    "biharmonic_dss",
+    "fused_operator_bd8_resident_x3",
+    "resident DSS chain with 3-pass bf16 hi/lo products accumulated in f32",
+    supports_f64=False,
+    verify_tol=5e-5,
+)
+def make_dss_bd8_resident_x3(cfg):
+    return _dss_resident_forms(cfg, "bf16x3")
+
+
+@register(
+    "biharmonic_dss",
+    "fused_operator_bd8_resident_sq",
+    "d-carry resident DSS chain with the precomposed squared operator: "
+    "(A·DSS·A)^n = A·DSS·(A²·DSS)^(n-1)·A, k+1 applications per k-step "
+    "launch instead of 2k (exact products)",
+)
+def make_dss_bd8_resident_sq(cfg):
+    return _dss_resident_forms(cfg, "highest", precomposed=True)
+
+
+@register(
+    "biharmonic_dss",
+    "fused_operator_bd8_resident_sq_x3",
+    "precomposed-A² d-carry resident DSS chain with 3-pass bf16 hi/lo "
+    "products (the production champion's form)",
+    supports_f64=False,
+    verify_tol=5e-5,
+)
+def make_dss_bd8_resident_sq_x3(cfg):
+    return _dss_resident_forms(cfg, "bf16x3", precomposed=True)

@@ -24,9 +24,11 @@ import functools
 import torch
 
 from cdk_torch.core import build
-from cdk_torch.core.platform import exact_fp32
 from cdk_torch.core.registry import register
-from cdk_torch.kernels.biharmonic.operator import build_element_operator
+from cdk_torch.kernels.biharmonic.operator import (
+    apply_operator,
+    build_element_operator,
+)
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
     from_lane_layout,
@@ -38,27 +40,15 @@ NPTS = 16
 PRECISIONS = ("highest", "bf16x3")
 
 
-def _bf16_round(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(x.dtype)
-
-
 def bd8_resident_plain(L: torch.Tensor, q_lane: torch.Tensor, n: int,
                        precision: str = "highest") -> torch.Tensor:
     """n chained batched products q <- L @ q.  L: (e, 16, 16), q_lane:
     (e, 16, ncol).  "bf16x3" forms each product from bf16-valued hi/lo
-    parts (exact products, f32 sums), as the TPU kernel's manual split."""
-    exact_fp32()
+    parts (exact products, f32 sums), as the TPU kernel's manual split
+    (`apply_operator`'s "high")."""
     q = q_lane
-    if precision == "highest":
-        for _ in range(n):
-            q = torch.bmm(L, q)
-        return q
-    L_hi = _bf16_round(L)
-    L_lo = _bf16_round(L - L_hi)
     for _ in range(n):
-        q_hi = _bf16_round(q)
-        q_lo = _bf16_round(q - q_hi)
-        q = torch.bmm(L_hi, q_hi) + torch.bmm(L_hi, q_lo) + torch.bmm(L_lo, q_hi)
+        q = apply_operator(L, q, "high" if precision == "bf16x3" else "highest")
     return q
 
 

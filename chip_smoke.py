@@ -13,13 +13,23 @@ Phases, each printing its result; the first failure exits non-zero:
               f32 and f64, with the family's gate; both timed with CUDA
               events.  K1/K2 at n = 1 and 4 steps; the CKE kernels K3, K11,
               K12 (and its bf16 form) and K13 at the shipped 25600 x 2800 x
-              100, and K3 and K13 also at the production 256000 x 28000 x 100
-  4. main     cdk_torch.harness.driver.run_kernel for biharmonic, mpdata and
-              cke: shipped size with host init at f64 (every variant against
-              the in-process reference at the f64 gate; for cke every
-              registered variant, the experimental ones included), and the
-              production preset with device init at f32 (reference and
-              champion; for cke also pallas_rows and pallas_lanegather)
+              100, and K3 and K13 also at the production 256000 x 28000 x
+              100; K14 (four forms), K19 (two forms) and the rowchain's
+              K15, K17 and step (K16 at depth 1, K18 deeper) at the
+              shipped 16 x 72 x 40 (f32 and f64) and the production
+              5400 x 72 x 10 (f32): one launch of each at the real radius,
+              then at rrearth 0.1 the launch depth each loop uses, each
+              depth-k step also bitwise against k depth-1 launches, and
+              every resident and rowchain loop(n) against n chained plain
+              steps for n in {1, 2, k, k+1, 2k+1}
+  4. main     cdk_torch.harness.driver.run_kernel for biharmonic,
+              biharmonic_dss, biharmonic_dss2d, mpdata and cke: shipped size
+              with host init at f64 (every variant against the in-process
+              reference at the f64 gate; for cke every registered variant,
+              the experimental ones included), and the production preset
+              with device init at f32 (reference and champion; for the DSS
+              families also the exact _sq form; for cke also pallas_rows
+              and pallas_lanegather)
   5. counts   every kernel's launch counter rose during phase 4
 
 Then the total wall time, one JSON line describing the kernels, and as the
@@ -288,6 +298,175 @@ def phase_cke_kernels(dev, card):
     return rows
 
 
+def phase_dss_kernels(dev, card):
+    """K14, K19 and the rowchain kernels K15-K18 against their plain
+    versions: each kernel's single launch at the real radius, the launch
+    depth each loop uses (and the rowchain step against that many depth-1
+    launches), and every resident and rowchain loop(n) against n chained
+    plain steps; returns the JSON rows."""
+    import torch
+
+    import cdk_torch.kernels  # noqa: F401  (registers the variants)
+    from cdk_torch.core import registry
+    from cdk_torch.core.config import BiharmonicConfig, with_overrides
+    from cdk_torch.kernels.biharmonic import dss2d_resident as dr2
+    from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
+    from cdk_torch.kernels.biharmonic import dss_resident as dr
+    from cdk_torch.kernels.biharmonic import problem as bp
+    from cdk_torch.kernels.biharmonic.dss2d import torus_shape
+
+    rows = {}
+    gates = {("float64", "highest"): 1e-13, ("float32", "highest"): 1e-6,
+             ("float32", "bf16x3"): 5e-5}
+    forms = {"": ("highest", False), "_x3": ("bf16x3", False),
+             "_sq": ("highest", True), "_sq_x3": ("bf16x3", True)}
+
+    def check(tag, what, gate, kernel, plain, time_it=True):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        rel, mae, big = errors(out, ref, "l2")
+        ms = timed_ms(kernel, REPS) if time_it else float("nan")
+        plain_ms = timed_ms(plain, REPS) if time_it else float("nan")
+        times = (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if time_it
+                 else "not timed")
+        print(f"[3 {tag}] {what}: rel_l2 {rel:.3e} (gate {gate:g}) max_abs "
+              f"{mae:.3e} of {big:.3e}; {times} [{card}]")
+        if not (rel < gate and big > 0 and bool(torch.isfinite(out).all())):
+            fail(f"{tag} {what}: rel_l2 {rel:.3e}")
+        return out, dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms)
+
+    def check_loops(tag, what, gate, loop, chained, n_list):
+        errs = []
+        for n in n_list:
+            got = bp.to_lane_layout(loop(n))
+            want = chained(n)
+            torch.cuda.synchronize()
+            rel, _, big = errors(got, want, "l2")
+            errs.append(f"n={n} {rel:.3e}")
+            if not (rel < gate and big > 0 and bool(torch.isfinite(got).all())):
+                fail(f"{tag} {what} loop n={n}: rel_l2 {rel:.3e}")
+        print(f"[3 {tag} loop] {what} vs chained plain steps: "
+              f"{', '.join(errs)} (gate {gate:g})")
+
+    def loop_ns(k):
+        return sorted({1, 2, k, k + 1, 2 * k + 1})
+
+    def variant(family, name, cfg):
+        return registry.get(family, name).fn(cfg)
+
+    for label, nelemd, qsize, dtypes in (("shipped", 16, 40, ("float32", "float64")),
+                                         ("production", 5400, 10, ("float32",))):
+        for dtype in dtypes:
+            # single launches at the real radius; chains at rrearth = 0.1:
+            # with the real radius every application scales q by
+            # ~rrearth^2 and an f32 chain of more than three applications
+            # sinks below f32's range; at 1 a 9-step production chain grows
+            # past it (~3e4 per step)
+            real = BiharmonicConfig(nelemd=nelemd, qsize=qsize, dtype=dtype,
+                                    device_init=True)
+            chain = with_overrides(real, rrearth=0.1)
+            data = bp.init_data(real, dev)
+            q = bp.to_lane_layout(data.qtens)
+            ex, ey = torus_shape(nelemd)
+            shape = f"{label:10s} e={nelemd} ncol={real.ncol} {dtype}"
+            for suffix, (prec, sq) in forms.items():
+                if (dtype, prec) not in gates:
+                    continue
+                gate = gates[dtype, prec]
+                L, w, L2 = variant("biharmonic_dss", "fused_operator_bd8_resident"
+                                   + suffix, real)["prepare"](data)
+                check("K14", f"{shape} {prec} sq={sq} n=1 real radius", gate,
+                      lambda: dr.dss_resident(L, w, q, 1, prec, L2),
+                      lambda: dr.dss_resident_plain(L, w, q, 1, prec, L2),
+                      time_it=False)
+                m = variant("biharmonic_dss", "fused_operator_bd8_resident" + suffix,
+                            chain)
+                L, w, L2 = m["prepare"](data)
+                k = dr.DEPTH
+                _, row = check("K14", f"{shape} {prec} sq={sq} n={k}", gate,
+                               lambda: dr.dss_resident(L, w, q, k, prec, L2),
+                               lambda: dr.dss_resident_plain(L, w, q, k, prec, L2))
+                if (label, suffix) == ("production", "_sq_x3"):
+                    rows["K14"] = row
+                check_loops("K14", f"{shape} resident{suffix}", gate,
+                            lambda n: m["loop"](data, n),
+                            lambda n: dr.dss_resident_plain(L, w, q, n, prec, L2),
+                            loop_ns(k))
+
+                if not sq:
+                    name = "fused_operator_bd8_resident" + suffix
+                    L, w = variant("biharmonic_dss2d", name, real)["prepare"](data)
+                    check("K19", f"{shape} {prec} n=1 real radius", gate,
+                          lambda: dr2.dss2d_resident(L, w, q, ex, ey, 1, prec),
+                          lambda: dr2.dss2d_resident_plain(L, w, q, ex, ey, 1, prec),
+                          time_it=False)
+                    m = variant("biharmonic_dss2d", name, chain)
+                    L, w = m["prepare"](data)
+                    k = dr2.loop_depth(ey)
+                    _, row = check(
+                        "K19", f"{shape} {prec} n={k}", gate,
+                        lambda: dr2.dss2d_resident(L, w, q, ex, ey, k, prec),
+                        lambda: dr2.dss2d_resident_plain(L, w, q, ex, ey, k, prec))
+                    if (label, suffix) == ("production", "_x3"):
+                        rows["K19"] = row
+                    check_loops(
+                        "K19", f"{shape} resident{suffix}", gate,
+                        lambda n: m["loop"](data, n),
+                        lambda n: dr2.dss2d_resident_plain(L, w, q, ex, ey, n, prec),
+                        loop_ns(k))
+
+                name = "fused_operator_rowchain" + suffix
+                L, w, F = variant("biharmonic_dss2d", name, real)["prepare"](data)
+                if not sq:  # the bridges apply A in both the plain and A^2 forms
+                    t, row = check("K15", f"{shape} {prec} bridge_in real radius", gate,
+                                   lambda: rc.rowchain_bridge_in(L, q, ex, ey, prec),
+                                   lambda: rc.rowchain_bridge_in_plain(L, q, ex, ey, prec))
+                    if (label, prec) == ("production", "bf16x3"):
+                        rows["K15"] = row
+                    _, row = check("K17", f"{shape} {prec} bridge_out real radius", gate,
+                                   lambda: rc.rowchain_bridge_out(L, w, t, ex, ey, prec),
+                                   lambda: rc.rowchain_bridge_out_plain(L, w, t, ex, ey, prec))
+                    if (label, prec) == ("production", "bf16x3"):
+                        rows["K17"] = row
+                # one step of q itself: from bridge-in's output the step's
+                # third application would reach f32's subnormals
+                check("K16", f"{shape} {prec} sq={sq} step depth 1 real radius", gate,
+                      lambda: rc.rowchain_step(F, w, q, ex, ey, 1, prec, sq),
+                      lambda: rc.rowchain_step_plain(F, w, q, ex, ey, 1, prec, sq),
+                      time_it=False)
+                m = variant("biharmonic_dss2d", name, chain)
+                L, w, F = m["prepare"](data)
+                t0 = rc.rowchain_bridge_in(L, q, ex, ey, prec)
+                depth = rc.loop_depth(prec, sq)
+                one = t0
+                for k in range(1, depth + 1):
+                    tag = "K16" if k == 1 else "K18"
+                    out, row = check(
+                        tag, f"{shape} {prec} sq={sq} step depth {k}", gate,
+                        lambda: rc.rowchain_step(F, w, t0, ex, ey, k, prec, sq),
+                        lambda: rc.rowchain_step_plain(F, w, t0, ex, ey, k, prec, sq))
+                    one = rc.rowchain_step(F, w, one, ex, ey, 1, prec, sq)
+                    if not torch.equal(out, one):
+                        fail(f"{tag} {shape} depth {k} differs from {k} depth-1 launches")
+                    if label == "production" and (
+                            (k == 1 and suffix == "_sq_x3")
+                            or (k == depth > 1 and suffix == "_sq")):
+                        rows[tag] = row
+                print(f"[3 K16/K18] {shape} {prec} sq={sq}: depth 1..{depth} "
+                      f"each bitwise equal to that many depth-1 launches")
+
+                def chained(n, L=L, w=w, F=F, prec=prec, sq=sq):
+                    t = rc.rowchain_bridge_in_plain(L, q, ex, ey, prec)
+                    t = rc.rowchain_step_plain(F, w, t, ex, ey, n - 1, prec, sq)
+                    return rc.rowchain_bridge_out_plain(L, w, t, ex, ey, prec)
+
+                check_loops("K15-K18", f"{shape} rowchain{suffix}", gate,
+                            lambda n: m["loop"](data, n), chained,
+                            loop_ns(depth))
+            del data, q
+    return rows
+
+
 def phase_main(dev, card):
     import cdk_torch.kernels  # noqa: F401  (registers the variants)
     from cdk_torch.core import registry
@@ -302,10 +481,21 @@ def phase_main(dev, card):
     legs = (
         ("biharmonic", "shipped f64", BiharmonicConfig(dtype="float64"), None),
         ("mpdata", "shipped f64", MpdataConfig(dtype="float64"), None),
+        ("biharmonic_dss", "shipped f64", BiharmonicConfig(dtype="float64"),
+         None),
+        ("biharmonic_dss2d", "shipped f64", BiharmonicConfig(dtype="float64"),
+         None),
         ("biharmonic", "production f32", production_config("biharmonic"),
          ["reference_jnp", "fused_operator_bd8_resident_x3"]),
         ("mpdata", "production f32", production_config("mpdata"),
          ["reference_jnp", "pallas_xmajor"]),
+        ("biharmonic_dss", "production f32", production_config("biharmonic_dss"),
+         ["reference_jnp", "fused_operator_bd8_resident_sq_x3",
+          "fused_operator_bd8_resident_sq"]),
+        ("biharmonic_dss2d", "production f32",
+         production_config("biharmonic_dss2d"),
+         ["reference_jnp", "fused_operator_rowchain_sq_x3",
+          "fused_operator_rowchain_sq"]),
         ("cke", "shipped f64", CkeConfig(dtype="float64"),
          list(registry.variants("cke"))),
         ("cke", "production f32", production_config("cke"),
@@ -333,7 +523,11 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev, card)
     rows.update(phase_cke_kernels(dev, card))
+    rows.update(phase_dss_kernels(dev, card))
 
+    from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
+    from cdk_torch.kernels.biharmonic.dss2d_resident import dss2d_resident
+    from cdk_torch.kernels.biharmonic.dss_resident import dss_resident
     from cdk_torch.kernels.biharmonic.resident import bd8_resident
     from cdk_torch.kernels.cke.lanegather import cke_lanegather
     from cdk_torch.kernels.cke.onehot import cke_onehot
@@ -342,11 +536,21 @@ def main() -> int:
     from cdk_torch.kernels.mpdata.resident import advect_resident
 
     wrappers = {"K1": bd8_resident, "K2": advect_resident, "K3": cke_rows,
-                "K11": cke_staged, "K12": cke_onehot, "K13": cke_lanegather}
+                "K11": cke_staged, "K12": cke_onehot, "K13": cke_lanegather,
+                "K14": dss_resident, "K15": rc.rowchain_bridge_in,
+                "K17": rc.rowchain_bridge_out, "K19": dss2d_resident}
     for w in wrappers.values():
         w.launches = 0
+    rc.rowchain_step.launches = 0
+    rc.rowchain_step.depth_launches = {}
     phase_main(dev, card)
     launches = {k: w.launches for k, w in wrappers.items()}
+    # K16 is the step at depth 1, K18 the same kernel at a depth above 1
+    depths = rc.rowchain_step.depth_launches
+    launches["K16"] = depths.get(1, 0)
+    launches["K18"] = sum(n for k, n in depths.items() if k > 1)
+    if launches["K16"] + launches["K18"] != rc.rowchain_step.launches:
+        fail(f"step launches {rc.rowchain_step.launches} != by depth {depths}")
     print(f"[5 counts] kernel launches during the main path: {launches}")
     for k, n in launches.items():
         if n <= 0:
@@ -367,10 +571,23 @@ def main() -> int:
                     replaces="cdk_tpu/kernels/cke/pallas_onehot.py:51"),
         "K13": dict(name="cke_lanegather", source="cdk_torch/csrc/cke_lanegather.cu",
                     replaces="cdk_tpu/kernels/cke/pallas_lanegather.py:68"),
+        "K14": dict(name="biharmonic_dss_resident",
+                    source="cdk_torch/csrc/biharmonic_dss_resident.cu",
+                    replaces="cdk_tpu/kernels/biharmonic/pallas_dss_resident.py:100"),
     }
+    rowchain = "cdk_torch/csrc/biharmonic_dss2d_rowchain.cu"
+    tpu_rowchain = "cdk_tpu/kernels/biharmonic/pallas_dss2d_resident.py"
+    for k, name, line in (("K15", "rowchain_bridge_in", 415),
+                          ("K16", "rowchain_step", 424),
+                          ("K17", "rowchain_bridge_out", 434),
+                          ("K18", "rowchain_step_depth_k", 443)):
+        meta[k] = dict(name=name, source=rowchain, replaces=f"{tpu_rowchain}:{line}")
+    meta["K19"] = dict(name="biharmonic_dss2d_resident",
+                       source="cdk_torch/csrc/biharmonic_dss_resident.cu",
+                       replaces=f"{tpu_rowchain}:66")
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
                     replaces=meta[k]["replaces"], launches=launches[k], **rows[k])
-               for k in wrappers]
+               for k in sorted(meta, key=lambda k: int(k[1:]))]
     print(f"[6 wall] {time.perf_counter() - t0:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -70,7 +70,8 @@ def test_config_fields_match(name):
 
 
 def test_production_presets_match():
-    for kernel in ("biharmonic", "mpdata", "cke"):
+    for kernel in ("biharmonic", "biharmonic_dss", "biharmonic_dss2d",
+                   "mpdata", "cke"):
         assert (dataclasses.asdict(tconfig.production_config(kernel))
                 == dataclasses.asdict(jconfig.production_config(kernel)))
     cfg = tconfig.production_config("biharmonic")
@@ -126,6 +127,21 @@ def test_registered_flags_match_jax():
     assert names == {
         "biharmonic": ["fused_operator_bd8_resident",
                        "fused_operator_bd8_resident_x3", "reference_jnp"],
+        "biharmonic_dss": ["fused_operator", "fused_operator_bd8",
+                           "fused_operator_bd8_resident",
+                           "fused_operator_bd8_resident_sq",
+                           "fused_operator_bd8_resident_sq_x3",
+                           "fused_operator_bd8_resident_x3",
+                           "fused_operator_bf16", "fused_operator_f32",
+                           "reference_jnp"],
+        "biharmonic_dss2d": ["fused_operator", "fused_operator_bd8",
+                             "fused_operator_bd8_resident",
+                             "fused_operator_bd8_resident_x3",
+                             "fused_operator_bf16", "fused_operator_f32",
+                             "fused_operator_rowchain",
+                             "fused_operator_rowchain_sq",
+                             "fused_operator_rowchain_sq_x3",
+                             "fused_operator_rowchain_x3", "reference_jnp"],
         "cke": ["gather_peradv", "gather_selfold", "onehot_mxu",
                 "onehot_mxu_bf16", "pallas_lanegather", "pallas_onehot",
                 "pallas_onehot_bf16", "pallas_rows", "reference_jnp",
@@ -143,8 +159,8 @@ def test_registered_flags_match_jax():
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_verify_gates_match_jax(dtype):
-    """The port's three verify functions give the JAX package's verdicts
-    and metrics on the same outputs."""
+    """The port's verify functions give the JAX package's verdicts and
+    metrics on the same outputs."""
     from cdk_torch.harness import specs as ts
     from cdk_tpu.harness import specs as js
 
@@ -154,6 +170,8 @@ def test_verify_gates_match_jax(dtype):
         out = ref * (1 + scale * rng.standard_normal(ref.shape))
         for tfn, jfn, cfg in (
             (ts._verify_biharmonic, js._verify_biharmonic,
+             tconfig.BiharmonicConfig(dtype=dtype)),
+            (ts._verify_biharmonic_dss, js._verify_biharmonic_dss,
              tconfig.BiharmonicConfig(dtype=dtype)),
             (ts._verify_cke, js._verify_cke, tconfig.CkeConfig(dtype=dtype)),
         ):
@@ -206,7 +224,9 @@ def test_build_names_and_refuses_without_nvcc(tmp_path, monkeypatch):
     """The library is named by a hash of the sources; with no nvcc the
     build raises instead of falling back."""
     cu = sorted(tbuild.CSRC.glob("*.cu"))
-    assert [p.name for p in cu] == ["biharmonic_resident.cu", "cke_lanegather.cu",
+    assert [p.name for p in cu] == ["biharmonic_dss2d_rowchain.cu",
+                                    "biharmonic_dss_resident.cu",
+                                    "biharmonic_resident.cu", "cke_lanegather.cu",
                                     "cke_onehot.cu", "cke_rows.cu",
                                     "cke_staged.cu", "mpdata_resident.cu"]
     assert tbuild._digest(cu) == tbuild._digest(list(cu))

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: each hand-written kernel against
-its plain PyTorch version on the card (K1, K2, and the CKE kernels K3, K11,
-K12, K13 at ragged shapes), the shared-memory refusal, and the driver's
+its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
+K12, K13 at ragged shapes, K14, K19 and the rowchain kernels K15-K18 on
+small and odd rings and tori), the shared-memory refusal, and the driver's
 main path through the kernels.  They skip without a CUDA card.
 
 This file imports no jax, so it runs where the card is (no JAX there):
@@ -22,7 +23,11 @@ from cdk_torch.core.norms import pointwise_check, rel_l1, rel_l2
 from cdk_torch.core.platform import resolve_device
 from cdk_torch.core.registry import UnsupportedConfigError, variants
 from cdk_torch.harness.driver import run_kernel
+from cdk_torch.kernels.biharmonic import dss2d_resident as dres2
+from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
+from cdk_torch.kernels.biharmonic import dss_resident as dres
 from cdk_torch.kernels.biharmonic import resident as bres
+from cdk_torch.kernels.biharmonic.operator import precompose_operator
 from cdk_torch.kernels.cke import lanegather as klg
 from cdk_torch.kernels.cke import onehot as koh
 from cdk_torch.kernels.cke import problem as cp
@@ -181,4 +186,107 @@ def test_driver_runs_cke_through_the_kernels(cuda):
     results = run_kernel("cke", cfg, variants=list(variants("cke")), iters=2,
                          trials=1, quiet=True, device=cuda)
     assert len(results) == 10 and all(r.ok for r in results), results
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+
+
+def _dss_operands(e, ncol, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal((e, 16, 16)) / 4),
+            torch.from_numpy(rng.uniform(0.25, 0.5, (e, 16))),
+            torch.from_numpy(rng.standard_normal((e, 16, ncol))))
+
+
+DSS_FORMS = [(torch.float64, "highest", 1e-13), (torch.float32, "highest", 1e-6),
+             (torch.float32, "bf16x3", 5e-5)]
+
+
+@pytest.mark.parametrize("e,ncol", [(5, 8), (16, 40), (40, 33)])
+def test_dss_resident_kernel_matches_plain(cuda, e, ncol):
+    """K14, all four forms, against its plain version: rings smaller than
+    the window (the same element appears in it more than once), an odd
+    ring, several windows, a ragged column tile, and 0 to 15 steps."""
+    L64, w64, q64 = _dss_operands(e, ncol, e)
+    for dtype, prec, gate in DSS_FORMS:
+        L, w, q = (x.to(cuda, dtype) for x in (L64, w64, q64))
+        for L2 in (None, precompose_operator(L)):
+            for n in (0, 1, 2, 4, dres.MAX_STEPS):
+                before = dres.dss_resident.launches
+                out = dres.dss_resident(L, w, q, n, prec, L2)
+                torch.cuda.synchronize()
+                assert dres.dss_resident.launches == before + 1
+                ref = dres.dss_resident_plain(L, w, q, n, prec, L2)
+                assert rel_l2(out, ref) < gate, (dtype, prec, L2 is None, n)
+
+
+@pytest.mark.parametrize("exy,ncol", [((4, 4), 40), ((4, 3), 8), ((16, 10), 33),
+                                      ((2, 2), 8), ((5, 1), 8), ((30, 21), 33),
+                                      ((3, 25), 8), ((75, 72), 8)])
+def test_dss2d_resident_kernel_matches_plain(cuda, exy, ncol):
+    """K19, both forms, against its plain version: tori smaller than the
+    window (ex = 2: the up and down rows are one row; a row may appear in
+    the window more than once), ey = 1 (the j neighbours are the element
+    itself), whole rows at 16-column tiles (ey = 10 at 2 steps, ey = 21 at
+    1), 8 x 8 windows (ey = 10 and 21 at 3 steps, ey = 25 and the
+    production 72 at every depth), a ragged column tile, and 0 to
+    max_steps(ey) steps."""
+    ex, ey = exy
+    L64, w64, q64 = _dss_operands(ex * ey, ncol, ex * 100 + ey)
+    kmax = dres2.max_steps(ey)
+    for dtype, prec, gate in DSS_FORMS:
+        L, w, q = (x.to(cuda, dtype) for x in (L64, w64, q64))
+        for n in sorted({0, 1, 2, kmax} & set(range(kmax + 1))):
+            before = dres2.dss2d_resident.launches
+            out = dres2.dss2d_resident(L, w, q, ex, ey, n, prec)
+            torch.cuda.synchronize()
+            assert dres2.dss2d_resident.launches == before + 1
+            ref = dres2.dss2d_resident_plain(L, w, q, ex, ey, n, prec)
+            assert rel_l2(out, ref) < gate, (dtype, prec, n)
+
+
+@pytest.mark.parametrize("exy,ncol", [((4, 4), 40), ((4, 3), 8), ((16, 10), 33),
+                                      ((2, 2), 8), ((3, 9), 40)])
+def test_rowchain_kernels_match_plain(cuda, exy, ncol):
+    """The bridges (K15, K17) and the step at depths 1-5 (K16, K18)
+    against their plain versions on small tori (ex = 2: the up and down
+    rows are one row; ey = 9: a row spans two blocks), and each depth-k
+    step bitwise against k depth-1 launches."""
+    ex, ey = exy
+    L64, w64, q64 = _dss_operands(ex * ey, ncol, ex * 100 + ey)
+    for dtype, prec, gate in DSS_FORMS:
+        L, w, q = (x.to(cuda, dtype) for x in (L64, w64, q64))
+        before = (rc.rowchain_bridge_in.launches, rc.rowchain_bridge_out.launches)
+        t = rc.rowchain_bridge_in(L, q, ex, ey, prec)
+        assert rel_l2(t, rc.rowchain_bridge_in_plain(L, q, ex, ey, prec)) < gate
+        out = rc.rowchain_bridge_out(L, w, t, ex, ey, prec)
+        assert rel_l2(out, rc.rowchain_bridge_out_plain(L, w, t, ex, ey, prec)) < gate
+        assert (rc.rowchain_bridge_in.launches,
+                rc.rowchain_bridge_out.launches) == (before[0] + 1, before[1] + 1)
+        for sq in (False, True):
+            F = precompose_operator(L) if sq else L
+            one = t
+            for k in range(1, 6):
+                before = rc.rowchain_step.launches
+                deep = rc.rowchain_step(F, w, t, ex, ey, k, prec, sq)
+                torch.cuda.synchronize()
+                assert rc.rowchain_step.launches == before + 1
+                ref = rc.rowchain_step_plain(F, w, t, ex, ey, k, prec, sq)
+                assert rel_l2(deep, ref) < gate, (dtype, prec, sq, k)
+                one = rc.rowchain_step(F, w, one, ex, ey, 1, prec, sq)
+                assert torch.equal(deep, one), (dtype, prec, sq, k)
+
+
+@pytest.mark.parametrize("kernel,nelemd", [("biharmonic_dss", 16),
+                                           ("biharmonic_dss2d", 12)])
+def test_driver_runs_dss_families_through_the_kernels(cuda, kernel, nelemd):
+    """Every variant of both families verifies through the driver at f32;
+    K14, or K19 and the rowchain's bridges and step, were launched."""
+    cfg = with_overrides(BiharmonicConfig(), nelemd=nelemd, nlev=4, qsize=2,
+                         dtype="float32")
+    wrappers = ((dres.dss_resident,) if kernel == "biharmonic_dss" else
+                (dres2.dss2d_resident, rc.rowchain_bridge_in, rc.rowchain_step,
+                 rc.rowchain_bridge_out))
+    before = [w.launches for w in wrappers]
+    results = run_kernel(kernel, cfg, iters=2, trials=1, quiet=True,
+                         device=cuda)
+    assert len(results) == len(variants(kernel)) and all(r.ok for r in results), results
     assert all(w.launches > b for w, b in zip(wrappers, before))

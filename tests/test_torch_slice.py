@@ -28,6 +28,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SMALL = {
     "biharmonic": with_overrides(BiharmonicConfig(), nelemd=8, nlev=4, qsize=2),
+    # a ring of 6 elements; a 4x3 torus (odd ey)
+    "biharmonic_dss": with_overrides(BiharmonicConfig(), nelemd=6, nlev=4,
+                                     qsize=2),
+    "biharmonic_dss2d": with_overrides(BiharmonicConfig(), nelemd=12, nlev=4,
+                                       qsize=2),
     "mpdata": with_overrides(MpdataConfig(), nslices=4, nx=8, nz=12),
     "cke": with_overrides(CkeConfig(), nedges=130, ncells=40, nvertlevels=21,
                           nadv=6),
@@ -46,6 +51,26 @@ EXPECTED = {
     ("biharmonic", "float64"): ["reference_jnp", "fused_operator_bd8_resident"],
     ("biharmonic", "float32"): ["reference_jnp", "fused_operator_bd8_resident",
                                 "fused_operator_bd8_resident_x3"],
+    ("biharmonic_dss", "float64"): [
+        "reference_jnp", "fused_operator", "fused_operator_f32",
+        "fused_operator_bd8", "fused_operator_bd8_resident",
+        "fused_operator_bd8_resident_sq"],
+    ("biharmonic_dss", "float32"): [
+        "reference_jnp", "fused_operator", "fused_operator_f32",
+        "fused_operator_bf16", "fused_operator_bd8",
+        "fused_operator_bd8_resident", "fused_operator_bd8_resident_x3",
+        "fused_operator_bd8_resident_sq", "fused_operator_bd8_resident_sq_x3"],
+    ("biharmonic_dss2d", "float64"): [
+        "reference_jnp", "fused_operator", "fused_operator_f32",
+        "fused_operator_bd8", "fused_operator_bd8_resident",
+        "fused_operator_rowchain", "fused_operator_rowchain_sq"],
+    ("biharmonic_dss2d", "float32"): [
+        "reference_jnp", "fused_operator", "fused_operator_f32",
+        "fused_operator_bf16", "fused_operator_bd8",
+        "fused_operator_bd8_resident", "fused_operator_bd8_resident_x3",
+        "fused_operator_rowchain",
+        "fused_operator_rowchain_x3", "fused_operator_rowchain_sq",
+        "fused_operator_rowchain_sq_x3"],
     ("mpdata", "float64"): ["reference_jnp", "pallas_xmajor"],
     ("mpdata", "float32"): ["reference_jnp", "pallas_xmajor"],
     # the experimental pallas_rows and pallas_lanegather run only when
@@ -59,7 +84,8 @@ EXPECTED = {
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("kernel", ["biharmonic", "mpdata", "cke"])
+@pytest.mark.parametrize("kernel", ["biharmonic", "biharmonic_dss",
+                                    "biharmonic_dss2d", "mpdata", "cke"])
 def test_run_kernel_every_variant_ok(kernel, dtype):
     cfg = with_overrides(SMALL[kernel], dtype=dtype)
     results = run_kernel(kernel, cfg, iters=2, trials=1, quiet=True,
@@ -149,11 +175,41 @@ def test_cli_list_prints_the_five_variants(listed):
 
 
 def test_cli_list_shows_the_cke_variants(listed):
-    assert list(listed) == ["biharmonic", "cke", "mpdata"]
+    assert list(listed) == ["biharmonic", "biharmonic_dss",
+                            "biharmonic_dss2d", "cke", "mpdata"]
     assert listed["cke"] == [
         "reference_jnp", "gather_peradv", "gather_selfold", "onehot_mxu",
         "onehot_mxu_bf16", "pallas_lanegather", "pallas_onehot",
         "pallas_onehot_bf16", "pallas_rows", "staged_consume"]
+
+
+def test_cli_list_shows_33_variants_and_the_dss_families(listed):
+    """35 variants in all: the 33 first listed and the two torus resident
+    forms (K19)."""
+    assert sum(map(len, listed.values())) == 35
+    assert listed["biharmonic_dss"] == [
+        "reference_jnp", "fused_operator", "fused_operator_f32",
+        "fused_operator_bf16", "fused_operator_bd8",
+        "fused_operator_bd8_resident", "fused_operator_bd8_resident_x3",
+        "fused_operator_bd8_resident_sq", "fused_operator_bd8_resident_sq_x3"]
+    assert listed["biharmonic_dss2d"] == [
+        "reference_jnp", "fused_operator", "fused_operator_f32",
+        "fused_operator_bf16", "fused_operator_bd8",
+        "fused_operator_bd8_resident", "fused_operator_bd8_resident_x3",
+        "fused_operator_rowchain",
+        "fused_operator_rowchain_x3", "fused_operator_rowchain_sq",
+        "fused_operator_rowchain_sq_x3"]
+
+
+def test_cli_run_biharmonic_dss2d_exits_zero():
+    proc = subprocess.run(
+        [sys.executable, "-m", "cdk_torch", "run", "biharmonic_dss2d",
+         "--device", "cpu", "--set", "nelemd=12", "--set", "nlev=4",
+         "--set", "qsize=2", "--iters", "2", "--trials", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "fused_operator_rowchain_sq" in proc.stdout
+    assert "FAILED" not in proc.stdout
 
 
 def test_cli_run_cke_with_namelist_exits_zero():
