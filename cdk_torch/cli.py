@@ -5,17 +5,31 @@
          [--iters N] [--trials N] [--variant NAME ...] [--json out.json]
          [--set key=value ...] [--preset production] [--device-init]
          [--namelist nested.nml] [--device cuda|cpu]
+  python -m cdk_torch integrate mpdata --steps N --variant pallas_fused
+         [--dtype float32|float64] [--out state.npz] [--set key=value ...]
+         [--device cuda|cpu]
+  python -m cdk_torch verify
 
 `--namelist` reads a reference-format nested.nml (cke only); `--set`
 overrides apply on top of it.
 
 `run` exits 1 if any variant fails its verification or crashes.
+`integrate` runs N steps of one variant from the host init (its `loop`
+where it has one) and saves the final state as out0, out1, ... in an npz.
+`verify` runs the port's tests with pytest and exits with pytest's code:
+tests/test_torch_*.py where jax imports (they compare with the JAX
+package), else tests/test_torch_gpu.py alone, which imports no jax.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
+import subprocess
 import sys
+from pathlib import Path
+
+KERNELS = ["biharmonic", "biharmonic_dss", "biharmonic_dss2d", "mpdata", "cke"]
 
 
 def _parse_set(kvs):
@@ -37,11 +51,10 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sub.add_parser("list", help="list kernels and registered variants")
+    sub.add_parser("verify", help="run the port's tests (pytest)")
 
     runp = sub.add_parser("run", help="run a kernel benchmark + verification")
-    runp.add_argument("kernel", choices=["biharmonic", "biharmonic_dss",
-                                        "biharmonic_dss2d", "mpdata", "cke",
-                                        "all"])
+    runp.add_argument("kernel", choices=KERNELS + ["all"])
     # the kernels take float32 and float64
     runp.add_argument("--dtype", default=None, choices=["float32", "float64"])
     runp.add_argument("--iters", type=int, default=10)
@@ -58,7 +71,22 @@ def main(argv=None) -> int:
                       help="generate inputs on the device (torch.Generator)")
     runp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
+    intp = sub.add_parser(
+        "integrate", help="run an N-step integration of a kernel with a "
+        "chosen variant and save the final state (npz)")
+    intp.add_argument("kernel", choices=KERNELS)
+    intp.add_argument("--steps", type=int, default=100)
+    intp.add_argument("--variant", default="reference_jnp")
+    intp.add_argument("--dtype", default="float32",
+                      choices=["float32", "float64"])
+    intp.add_argument("--out", default=None, help="output .npz path")
+    intp.add_argument("--set", dest="sets", action="append", default=None,
+                      metavar="key=value")
+    intp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
     args = p.parse_args(argv)
+    if args.cmd == "verify":
+        return verify()
     if args.cmd == "run" and args.namelist:
         if args.kernel != "cke":
             p.error("--namelist is for the cke kernel only")
@@ -74,6 +102,10 @@ def main(argv=None) -> int:
             for name, var in registry.variants(kernel).items():
                 print(f"  {name:<32s} {var.description}")
         return 0
+
+    if args.cmd == "integrate":
+        return integrate(args.kernel, args.variant, args.steps, args.dtype,
+                         _parse_set(args.sets), args.out, args.device)
 
     from dataclasses import asdict
 
@@ -121,6 +153,51 @@ def main(argv=None) -> int:
         print(f"FAILED variants: {', '.join(failed)}")
         return 1
     return 0
+
+
+def integrate(kernel: str, variant: str, steps: int, dtype: str,
+              overrides: dict, out: str | None, device: str) -> int:
+    """`steps` steps of one variant from the host init; prints each
+    output's shape and |x|max as the JAX CLI does, saves them to `out`."""
+    import numpy as np
+
+    from cdk_torch.core import registry
+    from cdk_torch.core.config import with_overrides
+    from cdk_torch.core.platform import resolve_device, synchronize
+    from cdk_torch.harness.specs import get_spec
+
+    spec = get_spec(kernel)
+    dev = resolve_device(device)
+    cfg = with_overrides(spec.default_config(), **{**overrides, "dtype": dtype})
+    data = spec.init(cfg, dev).to(dev)
+    step2, aux, vloop = registry._materialize(registry.get(kernel, variant),
+                                              cfg, data)
+    if vloop is not None:
+        res = vloop(data, steps)
+    else:
+        res = spec.loop_runner(step2, aux, steps)(data)
+    synchronize(dev)
+    leaves = {f"out{i}": t.cpu().numpy() for i, t in
+              enumerate(res if isinstance(res, tuple) else (res,))}
+    for name, arr in leaves.items():
+        print(f" {kernel}/{variant} x{steps}: {name} shape={arr.shape} "
+              f"|x|max={np.abs(arr).max():.6e}")
+    if out:
+        np.savez(out, **leaves)
+        print(f"wrote {out}")
+    return 0
+
+
+def verify() -> int:
+    """The port's tests under pytest; returns pytest's exit code."""
+    root = Path(__file__).resolve().parents[1]
+    if importlib.util.find_spec("jax") is not None:
+        cmd = sorted(map(str, (root / "tests").glob("test_torch_*.py")))
+    else:  # without jax, only the tests that need none
+        cmd = ["--noconftest", "-p", "no:cacheprovider",
+               str(root / "tests" / "test_torch_gpu.py")]
+    return subprocess.run([sys.executable, "-m", "pytest", "-q", *cmd],
+                          cwd=root).returncode
 
 
 if __name__ == "__main__":

@@ -8,5 +8,6 @@ from cdk_torch.kernels.biharmonic import (  # noqa: F401
     problem,
     reference,
     resident,
+    fused,  # after resident: the variants list in the JAX package's order
 )
 from cdk_torch.kernels.biharmonic.problem import BiharmonicData, init_data  # noqa: F401

@@ -11,10 +11,14 @@ identity basis fields (exact, since the operator is linear).
 The JAX package also groups eight operators into (128, 128)
 block-diagonal tiles (`blockdiag_group_operator`) only to fill the TPU's
 matrix unit; the Hopper kernel takes the per-element operators as they
-are, so that grouping is not ported.
+are, so that grouping is not ported, and the `fused_operator_bd8` forms
+here apply the per-element operators, as K1 does.
 
 `apply_operator` is the batched product under the JAX package's precision
 names; every plain version of the biharmonic kernels is built from it.
+The variants registered here are the JAX package's XLA forms: plain
+PyTorch products (`torch.bmm`, one dense `torch.matmul` for
+`fused_operator_bd`), with no kernel of their own.
 """
 
 from __future__ import annotations
@@ -22,7 +26,13 @@ from __future__ import annotations
 import torch
 
 from cdk_torch.core.platform import exact_fp32
-from cdk_torch.kernels.biharmonic.reference import laplace_sphere_wk
+from cdk_torch.core.registry import UnsupportedConfigError, register
+from cdk_torch.kernels.biharmonic.problem import (
+    BiharmonicData,
+    from_lane_layout,
+    to_lane_layout,
+)
+from cdk_torch.kernels.biharmonic.reference import laplace_sphere_wk, rrearth_as
 
 
 def build_element_operator(dvv, dinv, spheremp, tensorvisc,
@@ -79,3 +89,138 @@ def precompose_operator(L: torch.Tensor) -> torch.Tensor:
     `precompose_operator`, a 'highest' einsum)."""
     exact_fp32()
     return torch.bmm(L, L)
+
+
+def blockdiag_operator(L: torch.Tensor) -> torch.Tensor:
+    """The per-element operators as one dense block-diagonal
+    (e*npts, e*npts) matrix (the JAX package's `blockdiag_operator`)."""
+    return torch.block_diag(*L)
+
+
+def apply_operator_blockdiag(Lbd: torch.Tensor,
+                             q_flat: torch.Tensor) -> torch.Tensor:
+    """q_flat: (e*npts, ncol) -> Lbd @ q_flat, one dense exact product."""
+    exact_fp32()
+    return Lbd @ q_flat
+
+
+def element_operator(data: BiharmonicData, rr: float) -> torch.Tensor:
+    """L of `build_element_operator` for the problem's element fields."""
+    return build_element_operator(data.dvv, data.dinv, data.spheremp,
+                                  data.tensorvisc, rr)
+
+
+def _chain(L, data: BiharmonicData, n: int, precision: str, cfg):
+    """n applications of L with qtens kept in lane layout (the layout
+    changes once at each end, not per step)."""
+    q = to_lane_layout(data.qtens)
+    for _ in range(n):
+        q = apply_operator(L, q, precision)
+    return from_lane_layout(q, cfg)
+
+
+def _fused_operator_forms(cfg, precision: str):
+    """step builds L and applies it once (as the JAX step does); loop
+    builds L once and applies it n times."""
+    rr = rrearth_as(cfg)
+
+    def step(data: BiharmonicData) -> torch.Tensor:
+        return _chain(element_operator(data, rr), data, 1, precision, cfg)
+
+    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+        return _chain(element_operator(data, rr), data, n, precision, cfg)
+
+    return {"step": step, "loop": loop}
+
+
+@register(
+    "biharmonic",
+    "fused_operator",
+    "per-element 16x16 fused Laplacian matrix applied as one batched "
+    "product over the fused (qsize*nlev) column batch, bf16x3 ('high') "
+    "products (fusion of the reference push-loop, "
+    "biharmonic_wk_kernel.F90:369-536)",
+)
+def make_fused_operator(cfg):
+    return _fused_operator_forms(cfg, "high")
+
+
+@register(
+    "biharmonic",
+    "fused_operator_bd",
+    "block-diagonal dense assembly of the per-element operators: the whole "
+    "timestep is ONE (e*16, e*16) x (e*16, ncol) product",
+)
+def make_fused_operator_bd(cfg):
+    rr = rrearth_as(cfg)
+    e, npts, ncol = cfg.nelemd, cfg.npts, cfg.ncol
+    # the dense operator is (e*16)^2: a demonstration form for miniapp
+    # sizes only (the JAX package's 2 GiB guard)
+    if (e * npts) ** 2 * 4 > 2 * 2**30:
+        raise UnsupportedConfigError(
+            f"fused_operator_bd: dense operator would be "
+            f"{(e * npts) ** 2 * 4 / 2**30:.1f} GiB; use fused_operator")
+
+    def step(data: BiharmonicData) -> torch.Tensor:
+        q_flat = to_lane_layout(data.qtens).reshape(e * npts, ncol)
+        out = apply_operator_blockdiag(
+            blockdiag_operator(element_operator(data, rr)), q_flat)
+        return from_lane_layout(out.reshape(e, npts, ncol), cfg)
+
+    return step
+
+
+@register(
+    "biharmonic",
+    "fused_operator_bf16",
+    "fused-operator product in single bf16 passes ('default'): the "
+    "explicit speed point of the precision/throughput trade (use "
+    "fused_operator for verification-grade f32)",
+    supports_f64=False,
+    fast_math=True,
+)
+def make_fused_operator_bf16(cfg):
+    return _fused_operator_forms(cfg, "default")
+
+
+def _bd8_forms(cfg, precision: str):
+    """prepare builds L (untimed); the JAX package's 8-element
+    block-diagonal grouping is a TPU tiling, so the per-element operators
+    are applied as they are."""
+    rr = rrearth_as(cfg)
+
+    def prepare(data: BiharmonicData):
+        return (element_operator(data, rr),)
+
+    def step(aux, data: BiharmonicData) -> torch.Tensor:
+        (L,) = aux
+        return _chain(L, data, 1, precision, cfg)
+
+    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+        return _chain(element_operator(data, rr), data, n, precision, cfg)
+
+    return {"prepare": prepare, "step": step, "loop": loop}
+
+
+@register(
+    "biharmonic",
+    "fused_operator_bd8",
+    "prebuilt per-element operators applied as one batched bf16x3 product "
+    "(the JAX form's 8-element (128,128) tiles are a TPU tiling and are "
+    "not ported)",
+)
+def make_fused_operator_bd8(cfg):
+    return _bd8_forms(cfg, "high")
+
+
+@register(
+    "biharmonic",
+    "fused_operator_bd8_bf16",
+    "prebuilt per-element operators applied in single bf16 passes: the "
+    "JAX package's recorded design point",
+    supports_f64=False,
+    fast_math=True,
+    experimental=True,
+)
+def make_fused_operator_bd8_bf16(cfg):
+    return _bd8_forms(cfg, "default")

@@ -1,19 +1,27 @@
 """K1: the resident biharmonic operator chain — n applications
-q <- L[e] q of every element's 16x16 operator in one kernel launch.
+q <- L[e] q of every element's 16x16 operator in one kernel launch — and
+K5, the one-step operator apply, on the same kernel.
 
-Replaces cdk_tpu/kernels/biharmonic/pallas_bd8.py::_resident_kernel
+K1 replaces cdk_tpu/kernels/biharmonic/pallas_bd8.py::_resident_kernel
 (`apply_bd8_resident`), under the same variant names:
 
   fused_operator_bd8_resident     "highest": exact f32 or f64 products
   fused_operator_bd8_resident_x3  "bf16x3": L_hi·q_hi + L_hi·q_lo + L_lo·q_hi
                                   with bf16 hi/lo splits, accumulated in f32
 
+K5 replaces cdk_tpu/kernels/biharmonic/operator.py::_pallas_apply_kernel
+(`apply_operator_pallas`), variant `fused_operator_pallas`: out[e] =
+L[e] @ q[e] with exact products, one step per launch.  That is K1's
+"highest" kernel at n = 1, so `apply_operator_pallas` launches it with
+n = 1 and counts its launches apart from K1's.
+
 The CUDA kernel is csrc/biharmonic_resident.cu.  Beside it here:
 `bd8_resident_plain`, the same function in plain PyTorch (the CPU path,
-and what the card's kernel is compared with), and the wrapper
-`bd8_resident`, which launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors.  The plain version runs its matrix products
-with TF32 off (`exact_fp32`), so "highest" means true f32 on the card.
+and what the card's kernel is compared with), and the wrappers
+`bd8_resident` and `apply_operator_pallas`, which launch the kernel for
+CUDA tensors and run the plain version for CPU tensors.  The plain version
+runs its matrix products with TF32 off (`exact_fp32`), so "highest" means
+true f32 on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from cdk_torch.core import build
 from cdk_torch.core.registry import register
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
-    build_element_operator,
+    element_operator,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -82,15 +90,10 @@ def _validate(L, q_lane, n, precision):
                          f"got {tuple(L.shape)}, {tuple(q_lane.shape)}")
 
 
-def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
-                 precision: str = "highest") -> torch.Tensor:
-    """Run n chained applications.  CUDA tensors launch the kernel (never
-    anything else); CPU tensors run bd8_resident_plain."""
-    _validate(L, q_lane, n, precision)
-    if q_lane.device.type == "cpu":
-        return bd8_resident_plain(L, q_lane, n, precision)
+def _launch(L: torch.Tensor, q_lane: torch.Tensor, n: int,
+            precision: str) -> torch.Tensor:
     if not (L.is_contiguous() and q_lane.is_contiguous()):
-        raise ValueError("bd8_resident needs contiguous L and q_lane")
+        raise ValueError("the operator kernel needs contiguous L and q_lane")
     e, _, ncol = q_lane.shape
     out = torch.empty_like(q_lane)
     stream = torch.cuda.current_stream(q_lane.device).cuda_stream
@@ -103,7 +106,18 @@ def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
             err = _lib().cdk_bd8_resident_f64(
                 L.data_ptr(), q_lane.data_ptr(), out.data_ptr(), e, ncol, n,
                 stream)
-    build.check(err, "bd8_resident")
+    build.check(err, "biharmonic_resident")
+    return out
+
+
+def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
+                 precision: str = "highest") -> torch.Tensor:
+    """K1: run n chained applications.  CUDA tensors launch the kernel
+    (never anything else); CPU tensors run bd8_resident_plain."""
+    _validate(L, q_lane, n, precision)
+    if q_lane.device.type == "cpu":
+        return bd8_resident_plain(L, q_lane, n, precision)
+    out = _launch(L, q_lane, n, precision)
     bd8_resident.launches += 1
     return out
 
@@ -111,15 +125,54 @@ def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
 bd8_resident.launches = 0  # kernel launches in this process
 
 
+def apply_operator_pallas(L: torch.Tensor, q_lane: torch.Tensor) -> torch.Tensor:
+    """K5: out[e] = L[e] @ q_lane[e], exact products, one launch of the
+    operator kernel at n = 1 (CPU tensors: the exact batched product)."""
+    _validate(L, q_lane, 1, "highest")
+    if q_lane.device.type == "cpu":
+        return bd8_resident_plain(L, q_lane, 1)
+    out = _launch(L, q_lane, 1, "highest")
+    apply_operator_pallas.launches += 1
+    return out
+
+
+apply_operator_pallas.launches = 0  # kernel launches in this process
+
+
+@register(
+    "biharmonic",
+    "fused_operator_pallas",
+    "prebuilt per-element operator applied by the operator kernel one step "
+    "per launch: exact f32 FMAs, device memory touched once in and once out "
+    "per step (no precision trade)",
+)
+def make_fused_operator_pallas(cfg):
+    rr = rrearth_as(cfg)
+
+    def prepare(data: BiharmonicData):
+        return (element_operator(data, rr),)
+
+    def step(aux, data: BiharmonicData) -> torch.Tensor:
+        (L,) = aux
+        return from_lane_layout(
+            apply_operator_pallas(L, to_lane_layout(data.qtens)), cfg)
+
+    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+        """n launches, one step each (as the JAX scan of its kernel)."""
+        L = element_operator(data, rr)
+        q = to_lane_layout(data.qtens)
+        for _ in range(n):
+            q = apply_operator_pallas(L, q)
+        return from_lane_layout(q, cfg)
+
+    return {"prepare": prepare, "step": step, "loop": loop}
+
+
 def _bd8_resident_forms(cfg, precision: str):
     rr = rrearth_as(cfg)
 
-    def _operator(data: BiharmonicData) -> torch.Tensor:
-        return build_element_operator(
-            data.dvv, data.dinv, data.spheremp, data.tensorvisc, rr)
-
     def prepare(data: BiharmonicData):
-        return (_operator(data),)
+        return (element_operator(data, rr),)
 
     def _run(L, qtens, n):
         out = bd8_resident(L, to_lane_layout(qtens), n, precision)
@@ -132,7 +185,7 @@ def _bd8_resident_forms(cfg, precision: str):
     def loop(data: BiharmonicData, n: int) -> torch.Tensor:
         """n applications in one launch (the timed path); the layout
         changes once at each end, not per step."""
-        return _run(_operator(data), data.qtens, n)
+        return _run(element_operator(data, rr), data.qtens, n)
 
     return {"prepare": prepare, "step": step, "loop": loop}
 

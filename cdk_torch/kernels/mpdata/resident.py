@@ -1,17 +1,21 @@
-"""K2: the resident MPDATA step loop — n advect_scalar2D steps in one
-kernel launch, with the step-invariant factors computed once.
+"""K2 and K9: the resident MPDATA step loop — n advect_scalar2D steps in
+one kernel launch, with the step-invariant factors computed once.
 
-Replaces cdk_tpu/kernels/mpdata/pallas_xmajor.py::_kernel (stage math:
-pallas_resident.py::make_invariants and advect_packed_hoisted), registered
-under the same name, `pallas_xmajor`.  The TPU kernel's packing (16 slices
-per vreg tile, 64-lane z segments) is not ported: the kernel takes the
-canonical (S, X, Z) layout.
+K2 replaces cdk_tpu/kernels/mpdata/pallas_xmajor.py::_kernel and K9
+cdk_tpu/kernels/mpdata/pallas_resident.py::_kernel_hoisted.  Both TPU
+kernels run the same stage math (pallas_resident.py::make_invariants and
+advect_packed_hoisted) and differ only in their TPU layouts (16 slices per
+vreg tile with 64-lane z segments; two slices per 128-lane row), which are
+not ported: one kernel takes the canonical (S, X, Z) layout and serves
+both names, `pallas_xmajor` (K2) and `pallas_hoisted` (K9).  Their
+wrappers count their launches apart.
 
 The CUDA kernel is csrc/mpdata_resident.cu.  Beside it here:
 `advect_resident_plain`, the same hoisted-invariant step loop in plain
 PyTorch (the CPU path, and what the card's kernel is compared with), and
-the wrapper `advect_resident`, which launches the kernel for CUDA tensors
-and runs the plain version for CPU tensors.  The plain version is
+the wrappers `advect_resident` (K2) and `advect_hoisted_resident` (K9),
+made by `step_kernel`, which launch the kernel for CUDA tensors and run
+the plain version for CPU tensors.  The plain version is
 elementwise, and still runs with TF32 off (`exact_fp32`) like every plain
 version and reference on the card.
 
@@ -23,15 +27,11 @@ reference, as in the JAX kernel.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from cdk_torch.core import build
 from cdk_torch.core.platform import exact_fp32
-from cdk_torch.core.registry import UnsupportedConfigError, register
-from cdk_torch.kernels.mpdata.problem import MpdataData
+from cdk_torch.core.registry import register
+from cdk_torch.kernels.mpdata.launch import resident_forms, step_kernel
 from cdk_torch.kernels.mpdata.reference import (
     EPS,
     _kb,
@@ -174,70 +174,24 @@ def advect_resident_plain(f, u, w, rho, rhow, adz, flux, n: int):
     return f, flux
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library()
-    for name in ("cdk_mpdata_resident_f32", "cdk_mpdata_resident_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.cdk_mpdata_resident_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.cdk_mpdata_resident_smem_bytes.restype = ctypes.c_longlong
-    lib.cdk_max_shared_optin.argtypes = [ctypes.c_int]
-    lib.cdk_max_shared_optin.restype = ctypes.c_int
-    return lib
+advect_resident = step_kernel(
+    "advect_resident", True, advect_resident_plain,
+    "K2 (`pallas_xmajor`): n hoisted steps in one launch; returns (f, flux).")
+advect_hoisted_resident = step_kernel(
+    "advect_hoisted_resident", True, advect_resident_plain,
+    "K9 (`pallas_hoisted`): the same kernel as advect_resident.")
 
 
-def _validate(f, u, w, rho, rhow, adz, flux, n):
-    if n < 0:
-        raise ValueError(f"n must be >= 0 (got {n})")
-    fields = dict(f=f, u=u, w=w, rho=rho, rhow=rhow, adz=adz, flux=flux)
-    s, xf, nzm = f.shape
-    nx, nz = xf - 6, nzm + 1
-    want = dict(f=(s, nx + 6, nzm), u=(s, nx + 5, nzm), w=(s, nx + 4, nz),
-                rho=(s, nzm), rhow=(s, nz), adz=(s, nzm), flux=(s, nz))
-    for name, t in fields.items():
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {want[name]}")
-        if t.dtype != f.dtype or t.device != f.device:
-            raise TypeError(f"{name}: {t.dtype} on {t.device}; every field "
-                            f"must be {f.dtype} on {f.device}")
-    if f.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"advect_resident takes float32 or float64, not {f.dtype}")
-
-
-def advect_resident(f, u, w, rho, rhow, adz, flux, n: int):
-    """Run n steps; returns (f, flux).  CUDA tensors launch the kernel
-    (never anything else); CPU tensors run advect_resident_plain."""
-    _validate(f, u, w, rho, rhow, adz, flux, n)
-    if f.device.type == "cpu":
-        return advect_resident_plain(f, u, w, rho, rhow, adz, flux, n)
-    args = (f, u, w, rho, rhow, adz, flux)
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("advect_resident needs contiguous fields")
-    s, xf, nzm = f.shape
-    nx = xf - 6
-    lib = _lib()
-    need = lib.cdk_mpdata_resident_smem_bytes(nx, nzm, f.element_size())
-    have = lib.cdk_max_shared_optin(f.device.index)
-    if need > have:
-        raise UnsupportedConfigError(
-            f"one slice (nx={nx}, nzm={nzm}, {f.dtype}) needs {need} B of "
-            f"shared memory; the card allows {have} B per block")
-    f_out = torch.empty_like(f)
-    flux_out = torch.empty_like(flux)
-    fn = (lib.cdk_mpdata_resident_f32 if f.dtype == torch.float32
-          else lib.cdk_mpdata_resident_f64)
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    with torch.cuda.device(f.device):
-        err = fn(*(t.data_ptr() for t in args), f_out.data_ptr(),
-                 flux_out.data_ptr(), s, nx, nzm, n, stream)
-    build.check(err, "advect_resident")
-    advect_resident.launches += 1
-    return f_out, flux_out
-
-
-advect_resident.launches = 0  # kernel launches in this process
+@register(
+    "mpdata",
+    "pallas_hoisted",
+    "resident kernel with all step-invariant math pre-folded before the "
+    "in-kernel time loop (upwind splits of u/w, antidiffusion + cross-term "
+    "coefficients with dd/irho/irhow absorbed); ~1 ulp/step reassociation "
+    "vs the reference ordering",
+)
+def make_pallas_hoisted(cfg):
+    return resident_forms(advect_hoisted_resident)
 
 
 @register(
@@ -248,18 +202,4 @@ advect_resident.launches = 0  # kernel launches in this process
     "runs all n steps in one kernel launch",
 )
 def make_pallas_xmajor(cfg):
-    def prepare(data: MpdataData):
-        """The step-invariant fields, contiguous (untimed staging)."""
-        return tuple(t.contiguous() for t in
-                     (data.u, data.w, data.rho, data.rhow, data.adz))
-
-    def step(aux, data: MpdataData):
-        return advect_resident(data.f.contiguous(), *aux,
-                               data.flux.contiguous(), 1)
-
-    def loop(data: MpdataData, n: int):
-        """n steps inside one launch (the timed path)."""
-        return advect_resident(data.f.contiguous(), *prepare(data),
-                               data.flux.contiguous(), n)
-
-    return {"step": step, "prepare": prepare, "loop": loop}
+    return resident_forms(advect_resident)

@@ -11,7 +11,14 @@ Phases, each printing its result; the first failure exits non-zero:
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes (shipped and production),
               f32 and f64, with the family's gate; both timed with CUDA
-              events.  K1/K2 at n = 1 and 4 steps; the CKE kernels K3, K11,
+              events, beside the kernel's bound (bytes over 3.35 TB/s or
+              operations over 67 TFLOP/s f32, with the bf16 products of a
+              bf16x3 form over 989 TFLOP/s, whichever is larger) and,
+              where one PyTorch call computes the same function, that
+              call's time.  K1/K2 at n = 1 and 4 steps; K4 (both
+              precisions), K5, the staged MPDATA kernel (K6 and K7 at one
+              step, K8 at 4 in one launch, and the bf16 form), K9 and K10
+              at shipped f32/f64 and production f32; the CKE kernels K3, K11,
               K12 (and its bf16 form) and K13 at the shipped 25600 x 2800 x
               100, and K3 and K13 also at the production 256000 x 28000 x
               100; K14 (four forms), K19 (two forms) and the rowchain's
@@ -26,8 +33,10 @@ Phases, each printing its result; the first failure exits non-zero:
               biharmonic_dss, biharmonic_dss2d, mpdata and cke: shipped size
               with host init at f64 (every variant against the in-process
               reference at the f64 gate; for cke every registered variant,
-              the experimental ones included), and the production preset
-              with device init at f32 (reference and champion; for the DSS
+              the experimental ones included; mpdata's experimental
+              pallas_lanes in a leg of its own), and the production preset
+              with device init at f32 (reference and champion; every
+              non-experimental biharmonic and mpdata variant; for the DSS
               families also the exact _sq form; for cke also pallas_rows
               and pallas_lanegather)
   5. counts   every kernel's launch counter rose during phase 4
@@ -44,6 +53,21 @@ import sys
 import time
 
 REPS = 20  # timed launches per phase-3 measurement, after two warm-ups
+# the card's peaks for a kernel's bound (H100 SXM data sheet): device memory
+# bytes/s, float32 operations/s outside the tensor cores, and dense bf16
+# operations/s (bf16 operands, f32 accumulation) on the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# operations per element-column: one exact 16x16 operator apply (256 FMAs),
+# a ring DSS (8 boundary sums, 16 weights), a torus DSS (16 sums, 16
+# weights) and its i pass with the weights (8 + 16) and j pass (8)
+APPLY, RING_DSS, TORUS_DSS, I_PASS, J_PASS = 512, 24, 32, 24, 8
+# a bf16x3 apply: three bf16 products of APPLY operations each, and in f32
+# the split of the column's 16 values into hi and lo parts (3 each) and the
+# sum of the three partial results (2 per output); the operator's split,
+# once per element per launch, is left out (about 1 per element-column)
+X3_BF16, X3_F32 = 3 * APPLY, 16 * 3 + 16 * 2
 
 
 def fail(msg: str) -> None:
@@ -67,6 +91,51 @@ def timed_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def ops_ms(ops: float, bf16_ops: float = 0.0) -> float:
+    """Milliseconds for `ops` float32 operations and `bf16_ops` bf16
+    tensor-core operations, each at its peak rate."""
+    return (ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S) * 1e3
+
+
+def bound(tensors, ops: float, bf16_ops: float = 0.0) -> dict:
+    """The least time the card could take: every tensor (inputs and
+    outputs) moved once at the memory rate, or the operations (ops_ms),
+    whichever is longer."""
+    moved = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops_ms(ops, bf16_ops)
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def apply_ops(cols: float, prec: str, n_apply: int, other: int = 0) -> dict:
+    """bound()'s operations for `cols` element-columns that each take
+    `n_apply` 16x16 applies in `prec` and `other` more float32 ones."""
+    if prec == "bf16x3":
+        return dict(ops=cols * (n_apply * X3_F32 + other),
+                    bf16_ops=cols * n_apply * X3_BF16)
+    return dict(ops=cols * (n_apply * APPLY + other))
+
+
+def mpdata_ops(nslices: int, nx: int, nzm: int, n: int, hoisted: bool) -> float:
+    """Operations of n MPDATA steps, counted from the stage code (each
+    add, mul, div, min, max, abs and negation one) over each stage's rows:
+    upwind fluxes 6 each, the flux sums 1, the upwind update 6, the
+    antidiffusive velocities 19 each (7 hoisted, plus 12 per point once for
+    the invariants), extrema and ratios 46, limited fluxes 10 each, the
+    final update 7."""
+    anti = 7 if hoisted else 19
+    per_level = (6 * (nx + 5) + 6 * (nx + 4) + 2 * nx + 6 * (nx + 4)
+                 + anti * (2 * nx + 5) + 46 * (nx + 2) + 10 * (2 * nx + 1)
+                 + 7 * nx)
+    once = 12 * (2 * nx + 5) if hoisted else 0
+    return float(nslices * nzm * (n * per_level + once))
+
+
+def cke_ops(nedges: int, nvert: int, nadv: int) -> float:
+    """Two FMAs per slot per (edge, level), then the finish (6)."""
+    return float(nedges * nvert * (4 * nadv + 6))
 
 
 def errors(out, ref, norm: str) -> tuple[float, float, float]:
@@ -163,7 +232,22 @@ def phase_kernels(dev, card):
                     fail(f"K1 {label} {dtype} {prec} n={n}: rel_l2 {rel:.3e}")
                 if (label, dtype, prec, n) == ("production", torch.float32,
                                                "bf16x3", 1):
-                    rows["K1"] = dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms)
+                    # the library call: one exact batched product
+                    lib_ms = timed_ms(lambda: torch.bmm(L, q), REPS)
+                    cols = q.numel() / 16  # element-columns
+                    rows["K1"] = dict(
+                        max_abs_err=mae, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms,
+                        **bound((L, q, out), **apply_ops(cols, prec, 1)))
+                    # a long chain reads and writes q once, so its steps
+                    # are bound by their operations alone
+                    per_step = {p: ops_ms(**apply_ops(cols, p, 1))
+                                for p in ("highest", "bf16x3")}
+                    print(f"[3 K1] {label} bf16x3 n=1: torch.bmm {lib_ms:.4f} ms, "
+                          f"bound {rows['K1']['bound_ms']:.4f} ms "
+                          f"({rows['K1']['bound_by']}); per step of a long "
+                          f"chain, operations: highest {per_step['highest']:.4f}"
+                          f" ms, bf16x3 {per_step['bf16x3']:.4f} ms [{card}]")
         del data, L64, q64, L, q
 
     gate_f = {torch.float32: 1e-6, torch.float64: 1e-13}
@@ -196,9 +280,151 @@ def phase_kernels(dev, card):
                     fail(f"K2 {label} {dtype} n={n}: rel_l1 f {ef:.3e} "
                          f"flux {efl:.3e}")
                 if (label, dtype, n) == ("production", torch.float32, 1):
-                    rows["K2"] = dict(max_abs_err=max(mae_f, mae_fl), ms=ms,
-                                      plain_ms=plain_ms)
+                    rows["K2"] = dict(
+                        max_abs_err=max(mae_f, mae_fl), ms=ms,
+                        plain_ms=plain_ms,
+                        **bound(args + (f_k, flux_k),
+                                mpdata_ops(cfg.nslices, cfg.nx, cfg.nzm, 1, True)))
             del d, args
+    return rows
+
+
+def phase_fused_and_staged_kernels(dev, card):
+    """K4, K5, the staged MPDATA kernel (through the K6, K7 and K8
+    wrappers, and its bf16 form), K9 and K10 against their plain versions,
+    one launch each at the real radius and shipped f32/f64 and production
+    f32; returns the JSON rows."""
+    import torch
+
+    from cdk_torch.core.config import BiharmonicConfig, MpdataConfig
+    from cdk_torch.kernels.biharmonic import problem as bp
+    from cdk_torch.kernels.biharmonic.fused import (
+        fused_laplace,
+        fused_laplace_plain,
+        pack_element_fields,
+    )
+    from cdk_torch.kernels.biharmonic.operator import element_operator
+    from cdk_torch.kernels.biharmonic.reference import rrearth_as
+    from cdk_torch.kernels.biharmonic.resident import (
+        apply_operator_pallas,
+        bd8_resident_plain,
+    )
+    from cdk_torch.kernels.mpdata import lanes, staged
+    from cdk_torch.kernels.mpdata import problem as mp
+    from cdk_torch.kernels.mpdata.resident import (
+        advect_hoisted_resident,
+        advect_resident_plain,
+    )
+
+    rows = {}
+
+    def check(tag, what, gates, kernel, plain):
+        """kernel() and plain() return a tensor (rel L2 against `gates[0]`)
+        or MPDATA's (f, flux) (rel L1 against the f and flux gates)."""
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        norm = "l1" if isinstance(out, tuple) else "l2"
+        errs = [errors(o, r, norm) for o, r in zip(outs, refs)]
+        ms = timed_ms(kernel, REPS)
+        plain_ms = timed_ms(plain, REPS)
+        mae = max(e[1] for e in errs)
+        print(f"[3 {tag}] {what}: rel_{norm} "
+              f"{' / '.join(f'{e[0]:.3e}' for e in errs)} (gate "
+              f"{' / '.join(f'{g:g}' for g in gates)}) max_abs {mae:.3e} of "
+              f"{max(e[2] for e in errs):.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms [{card}]")
+        if not all(e[0] < g and e[2] > 0 and bool(torch.isfinite(o).all())
+                   for e, g, o in zip(errs, gates, outs)):
+            fail(f"{tag} {what}: {[e[0] for e in errs]}")
+        return outs, dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms)
+
+    gate = {"float32": 2e-5, "float64": 1e-13}
+    for label, (nelemd, qsize), dtypes in (
+            ("shipped", (16, 40), ("float32", "float64")),
+            ("production", (5400, 10), ("float32",))):
+        for dtype in dtypes:
+            cfg = BiharmonicConfig(nelemd=nelemd, qsize=qsize, dtype=dtype,
+                                   device_init=True)
+            data = bp.init_data(cfg, dev)
+            rr = rrearth_as(cfg)
+            q = bp.to_lane_layout(data.qtens)
+            cols = q.numel() / 16  # element-columns
+            L = element_operator(data, rr)
+            shape = f"{label:10s} e={nelemd} ncol={cfg.ncol} {dtype}"
+            (out,), row = check("K5", f"{shape} one step", (gate[dtype],),
+                                lambda: apply_operator_pallas(L, q),
+                                lambda: bd8_resident_plain(L, q, 1))
+            if dtype != "float32":
+                continue
+            # the library call of K5 (and of K4: the same linear map with
+            # the prebuilt operator): one exact batched product
+            lib_ms = timed_ms(lambda: torch.bmm(L, q), REPS)
+            if label == "production":
+                rows["K5"] = dict(row, library_ms=lib_ms,
+                                  **bound((L, q, out), cols * APPLY))
+            elem = pack_element_fields(data.dinv, data.spheremp, data.tensorvisc)
+            dvv = data.dvv.contiguous()
+            # the plain version rounds as the kernel does and sums in its
+            # order, so both precisions are held tighter than their gates
+            # (2e-5; 1e-2 for the one-pass bf16 "default"), so that a kernel
+            # that skipped the bf16 rounding fails
+            for prec in ("highest", "default"):
+                (out,), row = check(
+                    "K4", f"{shape} {prec}", (1e-6,),
+                    lambda: fused_laplace(dvv, elem, q, rr, prec),
+                    lambda: fused_laplace_plain(dvv, elem, q, rr, prec))
+                if (label, prec) == ("production", "highest"):
+                    rows["K4"] = dict(row, library_ms=lib_ms, **bound(
+                        (dvv, elem, q, out), cols * 896))
+            print(f"[3 K4/K5] {shape}: torch.bmm with the prebuilt operator "
+                  f"{lib_ms:.4f} ms [{card}]")
+        del data, q, L
+
+    # the bf16 form against its plain version in bf16: 1e-2 on both (the
+    # registered flux gate against the reference is 1e-1), so a wrong
+    # rounding scheme fails
+    mgates = {"float32": (1e-6, 1e-5), "float64": (1e-13, 1e-13),
+              "bfloat16": (1e-2, 1e-2)}
+    for label, nslices, dtypes in (("shipped", 48, ("float32", "float64")),
+                                   ("production", 8192, ("float32",))):
+        for dtype in dtypes:
+            cfg = MpdataConfig(nslices=nslices, dtype=dtype, device_init=True)
+            d = mp.init_data(cfg, dev)
+            args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+            shape = f"{label:10s} S={nslices} nx=32 nz=58"
+            cases = [("K6", staged.advect_fused, 1, args, dtype),
+                     ("K7", staged.advect_packed, 1, args, dtype),
+                     ("K8", staged.advect_staged_resident, 4, args, dtype)]
+            if dtype == "float32":
+                cases.append(("K7", staged.advect_packed, 1,
+                              tuple(a.to(torch.bfloat16) for a in args),
+                              "bfloat16"))
+            for tag, wrapper, n, a, kind in cases:
+                outs, row = check(
+                    tag, f"{shape} {kind:8s} {wrapper.__name__} n={n}",
+                    mgates[kind], lambda: wrapper(*a, n),
+                    lambda: staged.advect_staged_plain(*a, n))
+                if label == "production" and kind == "float32":
+                    rows[tag] = dict(row, **bound(
+                        a + outs, mpdata_ops(cfg.nslices, cfg.nx, cfg.nzm, n, False)))
+            outs, row = check(
+                "K9", f"{shape} {dtype:8s} advect_hoisted_resident n=1",
+                mgates[dtype], lambda: advect_hoisted_resident(*args, 1),
+                lambda: advect_resident_plain(*args, 1))
+            if label == "production":
+                rows["K9"] = dict(row, **bound(
+                    args + outs, mpdata_ops(cfg.nslices, cfg.nx, cfg.nzm, 1, True)))
+            xzs = tuple(lanes.to_xzs(t) for t in args)
+            outs, row = check(
+                "K10", f"{shape} {dtype:8s} advect_lanes (x, z, s)",
+                mgates[dtype], lambda: lanes.advect_lanes(*xzs),
+                lambda: lanes.advect_lanes_plain(*xzs))
+            if label == "production":
+                rows["K10"] = dict(row, **bound(
+                    xzs + outs, mpdata_ops(cfg.nslices, cfg.nx, cfg.nzm, 1, False)))
+            del d, args, xzs
     return rows
 
 
@@ -245,7 +471,7 @@ def phase_cke_kernels(dev, card):
                             lambda: cke_lanegather_plain(*trans, c3))
             if label == "shipped":
                 staged = stage_slots(t, d.adv_cells, torch.empty(
-                    (cfg.nadv, nedges, cfg.nvertlevels), dtype=t.dtype,
+                    (cfg.nadv, cfg.nedges, cfg.nvertlevels), dtype=t.dtype,
                     device=dev))
                 cases["K11"] = (lambda: cke_staged(staged, *edge, *ef, c3),
                                 lambda: cke_staged_plain(staged, *edge, *ef, c3))
@@ -289,8 +515,17 @@ def phase_cke_kernels(dev, card):
                 key = name.split()[0]
                 if ((key in ("K3", "K13") and label == "production")
                         or (key in ("K11", "K12") and name == key
-                            and dtype == "float64")):
-                    rows[key] = dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms)
+                            and dtype == "float32")):
+                    if key == "K11":
+                        inputs = (staged, *edge, *ef)
+                    elif key == "K13":
+                        inputs = trans
+                    else:
+                        inputs = (d.adv_cells, *edge, t, *ef)
+                    rows[key] = dict(
+                        max_abs_err=mae, ms=ms, plain_ms=plain_ms,
+                        **bound(inputs + (out,),
+                                cke_ops(cfg.nedges, cfg.nvertlevels, cfg.nadv)))
                 del out, ref
             del d, t, edge, ef, trans, cases
             if label == "shipped":
@@ -367,7 +602,8 @@ def phase_dss_kernels(dev, card):
             chain = with_overrides(real, rrearth=0.1)
             data = bp.init_data(real, dev)
             q = bp.to_lane_layout(data.qtens)
-            ex, ey = torus_shape(nelemd)
+            cols = q.numel() / 16  # element-columns
+            ex, ey = torus_shape(real.nelemd)
             shape = f"{label:10s} e={nelemd} ncol={real.ncol} {dtype}"
             for suffix, (prec, sq) in forms.items():
                 if (dtype, prec) not in gates:
@@ -387,7 +623,10 @@ def phase_dss_kernels(dev, card):
                                lambda: dr.dss_resident(L, w, q, k, prec, L2),
                                lambda: dr.dss_resident_plain(L, w, q, k, prec, L2))
                 if (label, suffix) == ("production", "_sq_x3"):
-                    rows["K14"] = row
+                    # A·D·(A²·D)^(k-1)·A: k+1 applications, k ring DSS
+                    rows["K14"] = dict(row, **bound(
+                        (L, w, L2, q, q),
+                        **apply_ops(cols, prec, k + 1, k * RING_DSS)))
                 check_loops("K14", f"{shape} resident{suffix}", gate,
                             lambda n: m["loop"](data, n),
                             lambda n: dr.dss_resident_plain(L, w, q, n, prec, L2),
@@ -408,7 +647,9 @@ def phase_dss_kernels(dev, card):
                         lambda: dr2.dss2d_resident(L, w, q, ex, ey, k, prec),
                         lambda: dr2.dss2d_resident_plain(L, w, q, ex, ey, k, prec))
                     if (label, suffix) == ("production", "_x3"):
-                        rows["K19"] = row
+                        rows["K19"] = dict(row, **bound(
+                            (L, w, q, q),
+                            **apply_ops(cols, prec, 2 * k, k * TORUS_DSS)))
                     check_loops(
                         "K19", f"{shape} resident{suffix}", gate,
                         lambda n: m["loop"](data, n),
@@ -422,12 +663,14 @@ def phase_dss_kernels(dev, card):
                                    lambda: rc.rowchain_bridge_in(L, q, ex, ey, prec),
                                    lambda: rc.rowchain_bridge_in_plain(L, q, ex, ey, prec))
                     if (label, prec) == ("production", "bf16x3"):
-                        rows["K15"] = row
+                        rows["K15"] = dict(row, **bound(
+                            (L, q, t), **apply_ops(cols, prec, 1, J_PASS)))
                     _, row = check("K17", f"{shape} {prec} bridge_out real radius", gate,
                                    lambda: rc.rowchain_bridge_out(L, w, t, ex, ey, prec),
                                    lambda: rc.rowchain_bridge_out_plain(L, w, t, ex, ey, prec))
                     if (label, prec) == ("production", "bf16x3"):
-                        rows["K17"] = row
+                        rows["K17"] = dict(row, **bound(
+                            (L, w, t, q), **apply_ops(cols, prec, 1, I_PASS)))
                 # one step of q itself: from bridge-in's output the step's
                 # third application would reach f32's subnormals
                 check("K16", f"{shape} {prec} sq={sq} step depth 1 real radius", gate,
@@ -451,7 +694,9 @@ def phase_dss_kernels(dev, card):
                     if label == "production" and (
                             (k == 1 and suffix == "_sq_x3")
                             or (k == depth > 1 and suffix == "_sq")):
-                        rows[tag] = row
+                        rows[tag] = dict(row, **bound(
+                            (F, w, t0, out),
+                            **apply_ops(cols, prec, k, k * (I_PASS + J_PASS))))
                 print(f"[3 K16/K18] {shape} {prec} sq={sq}: depth 1..{depth} "
                       f"each bitwise equal to that many depth-1 launches")
 
@@ -478,6 +723,10 @@ def phase_main(dev, card):
     )
     from cdk_torch.harness.driver import run_kernel
 
+    def stable(kernel):  # every registered variant but the experimental ones
+        return [n for n, v in registry.variants(kernel).items()
+                if not v.experimental]
+
     legs = (
         ("biharmonic", "shipped f64", BiharmonicConfig(dtype="float64"), None),
         ("mpdata", "shipped f64", MpdataConfig(dtype="float64"), None),
@@ -485,10 +734,12 @@ def phase_main(dev, card):
          None),
         ("biharmonic_dss2d", "shipped f64", BiharmonicConfig(dtype="float64"),
          None),
+        ("mpdata", "shipped f64 lanes", MpdataConfig(dtype="float64"),
+         ["reference_jnp", "pallas_lanes"]),
         ("biharmonic", "production f32", production_config("biharmonic"),
-         ["reference_jnp", "fused_operator_bd8_resident_x3"]),
+         stable("biharmonic")),
         ("mpdata", "production f32", production_config("mpdata"),
-         ["reference_jnp", "pallas_xmajor"]),
+         stable("mpdata")),
         ("biharmonic_dss", "production f32", production_config("biharmonic_dss"),
          ["reference_jnp", "fused_operator_bd8_resident_sq_x3",
           "fused_operator_bd8_resident_sq"]),
@@ -522,20 +773,34 @@ def main() -> int:
     dev, card = phase_device()
     phase_build()
     rows = phase_kernels(dev, card)
+    rows.update(phase_fused_and_staged_kernels(dev, card))
     rows.update(phase_cke_kernels(dev, card))
     rows.update(phase_dss_kernels(dev, card))
 
     from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
     from cdk_torch.kernels.biharmonic.dss2d_resident import dss2d_resident
     from cdk_torch.kernels.biharmonic.dss_resident import dss_resident
-    from cdk_torch.kernels.biharmonic.resident import bd8_resident
+    from cdk_torch.kernels.biharmonic.fused import fused_laplace
+    from cdk_torch.kernels.biharmonic.resident import (
+        apply_operator_pallas,
+        bd8_resident,
+    )
     from cdk_torch.kernels.cke.lanegather import cke_lanegather
     from cdk_torch.kernels.cke.onehot import cke_onehot
     from cdk_torch.kernels.cke.rows import cke_rows
     from cdk_torch.kernels.cke.staged import cke_staged
-    from cdk_torch.kernels.mpdata.resident import advect_resident
+    from cdk_torch.kernels.mpdata import staged
+    from cdk_torch.kernels.mpdata.lanes import advect_lanes
+    from cdk_torch.kernels.mpdata.resident import (
+        advect_hoisted_resident,
+        advect_resident,
+    )
 
     wrappers = {"K1": bd8_resident, "K2": advect_resident, "K3": cke_rows,
+                "K4": fused_laplace, "K5": apply_operator_pallas,
+                "K6": staged.advect_fused, "K7": staged.advect_packed,
+                "K8": staged.advect_staged_resident,
+                "K9": advect_hoisted_resident, "K10": advect_lanes,
                 "K11": cke_staged, "K12": cke_onehot, "K13": cke_lanegather,
                 "K14": dss_resident, "K15": rc.rowchain_bridge_in,
                 "K17": rc.rowchain_bridge_out, "K19": dss2d_resident}
@@ -565,6 +830,23 @@ def main() -> int:
                    replaces="cdk_tpu/kernels/mpdata/pallas_xmajor.py:122"),
         "K3": dict(name="cke_rows", source="cdk_torch/csrc/cke_rows.cu",
                    replaces="cdk_tpu/kernels/cke/pallas_rows.py:46"),
+        "K4": dict(name="biharmonic_fused", source="cdk_torch/csrc/biharmonic_fused.cu",
+                   replaces="cdk_tpu/kernels/biharmonic/pallas_fused.py:41"),
+        # K5 launches K1's kernel at one step
+        "K5": dict(name="biharmonic_operator_apply",
+                   source="cdk_torch/csrc/biharmonic_resident.cu",
+                   replaces="cdk_tpu/kernels/biharmonic/operator.py:346"),
+        # K6-K8 are the staged form of K2's source, K9 its hoisted form
+        "K6": dict(name="mpdata_staged_fused", source="cdk_torch/csrc/mpdata_resident.cu",
+                   replaces="cdk_tpu/kernels/mpdata/pallas_fused.py:41"),
+        "K7": dict(name="mpdata_staged_packed", source="cdk_torch/csrc/mpdata_resident.cu",
+                   replaces="cdk_tpu/kernels/mpdata/pallas_packed.py:255"),
+        "K8": dict(name="mpdata_staged_resident", source="cdk_torch/csrc/mpdata_resident.cu",
+                   replaces="cdk_tpu/kernels/mpdata/pallas_resident.py:49"),
+        "K9": dict(name="mpdata_hoisted_resident", source="cdk_torch/csrc/mpdata_resident.cu",
+                   replaces="cdk_tpu/kernels/mpdata/pallas_resident.py:260"),
+        "K10": dict(name="mpdata_lanes", source="cdk_torch/csrc/mpdata_lanes.cu",
+                    replaces="cdk_tpu/kernels/mpdata/pallas_lanes.py:60"),
         "K11": dict(name="cke_staged", source="cdk_torch/csrc/cke_staged.cu",
                     replaces="cdk_tpu/kernels/cke/staged.py:38"),
         "K12": dict(name="cke_onehot", source="cdk_torch/csrc/cke_onehot.cu",
@@ -586,8 +868,11 @@ def main() -> int:
                        source="cdk_torch/csrc/biharmonic_dss_resident.cu",
                        replaces=f"{tpu_rowchain}:66")
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
-                    replaces=meta[k]["replaces"], launches=launches[k], **rows[k])
+                    replaces=meta[k]["replaces"], launches=launches[k],
+                    **{"library_ms": None, **rows[k]})
                for k in sorted(meta, key=lambda k: int(k[1:]))]
+    if len(kernels) != 19:
+        fail(f"{len(kernels)} kernels described, want the 19 single-chip ones")
     print(f"[6 wall] {time.perf_counter() - t0:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

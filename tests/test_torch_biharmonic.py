@@ -168,3 +168,143 @@ def test_bd8_resident_wrapper_contract():
         tres.bd8_resident(L[:2], q, 1)
     with pytest.raises(ValueError, match="n must be"):
         tres.bd8_resident(L, q, -1)
+
+
+# ---- the XLA forms, K5 (fused_operator_pallas) and K4 (pallas_fused,
+# pallas_fused_bf16) against the JAX variants of the same names.  JAX on the
+# CPU ignores dot precision, so its "high" and "default" products are exact
+# there; the port's plain versions emulate bf16x3 and bf16, so those forms
+# are held to the family gate against the f64 reference, and the exact
+# forms (every f64 one, and pallas_fused) to JAX directly.
+
+F64_FORMS = ["fused_operator", "fused_operator_bd", "fused_operator_bd8",
+             "fused_operator_pallas"]
+LOOP_FORMS = ["fused_operator", "fused_operator_bd8", "fused_operator_pallas"]
+
+
+def _port_out(name, cfg, n):
+    from cdk_torch.core.registry import _materialize, get
+    from cdk_torch.harness.specs import get_spec
+
+    data = tp.init_data(cfg)
+    step2, aux, loop = _materialize(get("biharmonic", name), cfg, data)
+    if n is None:
+        return step2(aux, data)
+    if loop is not None:
+        return loop(data, n)
+    return get_spec("biharmonic").loop_runner(step2, aux, n)(data)
+
+
+def _jax_out(name, cfg, n):
+    from cdk_tpu.core.registry import _materialize, get
+
+    jcfg = _jcfg(cfg)
+    data = _jdata(cfg)
+    step2, aux, loop = _materialize(get("biharmonic", name), jcfg, data)
+    return np.asarray(step2(aux, data) if n is None else loop(data, n))
+
+
+@pytest.mark.parametrize("name", F64_FORMS)
+@pytest.mark.parametrize("cfg", sorted(CONFIGS))
+def test_exact_forms_step_f64_vs_jax(cfg, name):
+    got = _port_out(name, CONFIGS[cfg], None)
+    want = _jax_out(name, CONFIGS[cfg], None)
+    assert got.shape == want.shape and got.dtype == torch.float64
+    assert rel_l2(got, want) < 1e-13
+
+
+@pytest.mark.parametrize("n", [1, 2, 5])
+@pytest.mark.parametrize("name", LOOP_FORMS)
+def test_exact_forms_loop_f64_vs_jax(name, n):
+    assert rel_l2(_port_out(name, GROUP, n), _jax_out(name, GROUP, n)) < 1e-13
+
+
+@pytest.mark.parametrize("n", [None, 1, 2, 5])
+def test_pallas_fused_f32_vs_jax(n):
+    """K4's exact form against the JAX kernel (interpret mode) at the f32
+    gate: one step at the real radius, loops at rrearth = 1 (denormals)."""
+    cfg = with_overrides(GROUP, dtype="float32",
+                         rrearth=GROUP.rrearth if n is None else 1.0)
+    got = _port_out("pallas_fused", cfg, n)
+    assert got.dtype == torch.float32
+    assert rel_l2(got, _jax_out("pallas_fused", cfg, n)) < 2e-5
+
+
+@pytest.mark.parametrize("name,gate", [
+    ("fused_operator", 2e-5), ("fused_operator_bd8", 2e-5),
+    ("fused_operator_pallas", 2e-5), ("fused_operator_bd", 2e-5),
+    ("pallas_fused", 2e-5),
+    # fast-math forms: the loose gate
+    ("fused_operator_bf16", 1e-2), ("fused_operator_bd8_bf16", 1e-2),
+    ("pallas_fused_bf16", 1e-2),
+])
+def test_f32_forms_against_reference(name, gate):
+    """One f32 step at the real radius against the f64 reference, at the
+    variant's gate; the bf16 forms are measurably inexact."""
+    got = _port_out(name, with_overrides(GROUP, dtype="float32"), None)
+    ref = tr.make_reference(GROUP)(tp.init_data(GROUP))
+    err = rel_l2(got, ref)
+    assert 0 < err < gate
+    assert (err > 1e-4) == name.endswith("_bf16")
+
+
+def test_stage_matrices_and_packing_match_jax():
+    from cdk_torch.kernels.biharmonic import fused as tfused
+    from cdk_tpu.kernels.biharmonic import pallas_fused as jfused
+
+    j = _jdata(GROUP)
+    t = _as_torch(j, torch.float64)
+    assert np.array_equal(tfused.stage_matrices(t.dvv).numpy(),
+                          np.stack(jop.stage_matrices(np.asarray(j.dvv))))
+    assert np.array_equal(
+        tfused.pack_element_fields(t.dinv, t.spheremp, t.tensorvisc).numpy(),
+        np.asarray(jfused.pack_element_fields(j.dinv, j.spheremp, j.tensorvisc)))
+
+
+def test_fused_plain_is_the_weak_laplacian():
+    """The stage chain at f64 equals the reference (its contractions are
+    the kron-structured stage matrices)."""
+    from cdk_torch.kernels.biharmonic import fused as tfused
+
+    t = tp.init_data(GROUP)
+    elem = tfused.pack_element_fields(t.dinv, t.spheremp, t.tensorvisc)
+    got = tfused.fused_laplace_plain(t.dvv, elem, tp.to_lane_layout(t.qtens),
+                                     GROUP.rrearth)
+    ref = tr.make_reference(GROUP)(t)
+    assert rel_l2(tp.from_lane_layout(got, GROUP), ref) < 1e-13
+
+
+def test_fused_laplace_and_operator_apply_contracts():
+    from cdk_torch.kernels.biharmonic import fused as tfused
+
+    t = tp.init_data(with_overrides(SMALL, dtype="float32"))
+    elem = tfused.pack_element_fields(t.dinv, t.spheremp, t.tensorvisc)
+    q = tp.to_lane_layout(t.qtens)
+    before = (tfused.fused_laplace.launches, tres.apply_operator_pallas.launches,
+              tres.bd8_resident.launches)
+    out = tfused.fused_laplace(t.dvv, elem, q, 1.0)
+    assert out.shape == q.shape
+    torch.testing.assert_close(
+        out, tfused.fused_laplace_plain(t.dvv, elem, q, 1.0), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="precision"):
+        tfused.fused_laplace(t.dvv, elem, q, 1.0, "high")
+    with pytest.raises(TypeError, match="float32"):
+        tfused.fused_laplace(t.dvv.double(), elem, q, 1.0)
+    with pytest.raises(ValueError, match="want"):
+        tfused.fused_laplace(t.dvv, elem[:2], q, 1.0)
+    L = top.build_element_operator(t.dvv, t.dinv, t.spheremp, t.tensorvisc, 1.0)
+    torch.testing.assert_close(tres.apply_operator_pallas(L, q),
+                               torch.bmm(L, q), rtol=0, atol=0)
+    with pytest.raises(TypeError):
+        tres.apply_operator_pallas(L.double(), q)
+    # CPU tensors run the plain versions: no launch is counted
+    assert (tfused.fused_laplace.launches, tres.apply_operator_pallas.launches,
+            tres.bd8_resident.launches) == before
+
+
+def test_fused_operator_bd_refuses_a_dense_operator_past_2_gib():
+    from cdk_torch.core.registry import UnsupportedConfigError, get
+
+    big = with_overrides(BiharmonicConfig(), nelemd=5400, qsize=10)
+    with pytest.raises(UnsupportedConfigError, match="GiB"):
+        get("biharmonic", "fused_operator_bd").fn(big)

@@ -118,36 +118,20 @@ def test_registry_factory_forms():
 
 
 def test_registered_flags_match_jax():
-    """A port variant carries the flags of the JAX variant of the same name."""
+    """The port registers the JAX package's (kernel, variant) names, all 49
+    of them, and each port variant carries the flags of the JAX variant of
+    the same name."""
     import cdk_torch.kernels  # noqa: F401
     import cdk_tpu.kernels  # noqa: F401
     from cdk_tpu.core import registry as jreg
 
     names = {k: sorted(treg.variants(k)) for k in treg.kernels()}
-    assert names == {
-        "biharmonic": ["fused_operator_bd8_resident",
-                       "fused_operator_bd8_resident_x3", "reference_jnp"],
-        "biharmonic_dss": ["fused_operator", "fused_operator_bd8",
-                           "fused_operator_bd8_resident",
-                           "fused_operator_bd8_resident_sq",
-                           "fused_operator_bd8_resident_sq_x3",
-                           "fused_operator_bd8_resident_x3",
-                           "fused_operator_bf16", "fused_operator_f32",
-                           "reference_jnp"],
-        "biharmonic_dss2d": ["fused_operator", "fused_operator_bd8",
-                             "fused_operator_bd8_resident",
-                             "fused_operator_bd8_resident_x3",
-                             "fused_operator_bf16", "fused_operator_f32",
-                             "fused_operator_rowchain",
-                             "fused_operator_rowchain_sq",
-                             "fused_operator_rowchain_sq_x3",
-                             "fused_operator_rowchain_x3", "reference_jnp"],
-        "cke": ["gather_peradv", "gather_selfold", "onehot_mxu",
-                "onehot_mxu_bf16", "pallas_lanegather", "pallas_onehot",
-                "pallas_onehot_bf16", "pallas_rows", "reference_jnp",
-                "staged_consume"],
-        "mpdata": ["pallas_xmajor", "reference_jnp"],
-    }
+    assert names == {k: sorted(jreg.variants(k)) for k in jreg.kernels()}
+    assert sum(map(len, names.values())) == 49
+    assert names["mpdata"] == [
+        "pallas_fused", "pallas_hoisted", "pallas_lanes", "pallas_packed",
+        "pallas_packed_bf16", "pallas_resident", "pallas_xmajor",
+        "reference_jnp"]
     flags = ("supports_f64", "fast_math", "experimental", "verify_tol",
              "requires_tpu")
     for kernel, vs in names.items():
@@ -196,6 +180,23 @@ def test_port_imports_no_jax():
                    timeout=120)
 
 
+def test_port_sources_import_no_jax():
+    """No module of the port and not chip_smoke.py names jax or the JAX
+    package in an import statement (chip_smoke.py cannot run here)."""
+    import ast
+
+    for path in [ROOT / "chip_smoke.py", *sorted((ROOT / "cdk_torch").rglob("*.py"))]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            bad = [m for m in mods if m.split(".")[0] in ("jax", "cdk_tpu")]
+            assert not bad, (path.name, bad)
+
+
 def test_slope_timer_median_band():
     """A runner whose cost is ~1 ms per step reads ~1 ms per step; the
     headline is the median of the trial-pair slopes in the band."""
@@ -226,9 +227,11 @@ def test_build_names_and_refuses_without_nvcc(tmp_path, monkeypatch):
     cu = sorted(tbuild.CSRC.glob("*.cu"))
     assert [p.name for p in cu] == ["biharmonic_dss2d_rowchain.cu",
                                     "biharmonic_dss_resident.cu",
+                                    "biharmonic_fused.cu",
                                     "biharmonic_resident.cu", "cke_lanegather.cu",
                                     "cke_onehot.cu", "cke_rows.cu",
-                                    "cke_staged.cu", "mpdata_resident.cu"]
+                                    "cke_staged.cu", "mpdata_lanes.cu",
+                                    "mpdata_resident.cu"]
     assert tbuild._digest(cu) == tbuild._digest(list(cu))
     assert tbuild._digest(cu) != tbuild._digest(cu[:1])
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: each hand-written kernel against
 its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
 K12, K13 at ragged shapes, K14, K19 and the rowchain kernels K15-K18 on
-small and odd rings and tori), the shared-memory refusal, and the driver's
-main path through the kernels.  They skip without a CUDA card.
+small and odd rings and tori, K4, K5, the staged MPDATA kernel behind K6,
+K7 and K8, K9 and K10), the shared-memory refusals, and the driver's main
+path through the kernels.  They skip without a CUDA card.
 
 This file imports no jax, so it runs where the card is (no JAX there):
 
@@ -26,6 +27,7 @@ from cdk_torch.harness.driver import run_kernel
 from cdk_torch.kernels.biharmonic import dss2d_resident as dres2
 from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
 from cdk_torch.kernels.biharmonic import dss_resident as dres
+from cdk_torch.kernels.biharmonic import fused as bfused
 from cdk_torch.kernels.biharmonic import resident as bres
 from cdk_torch.kernels.biharmonic.operator import precompose_operator
 from cdk_torch.kernels.cke import lanegather as klg
@@ -34,8 +36,10 @@ from cdk_torch.kernels.cke import problem as cp
 from cdk_torch.kernels.cke import rows as krows
 from cdk_torch.kernels.cke import staged as kst
 from cdk_torch.kernels.cke.reference import coef3_of, fsign1
+from cdk_torch.kernels.mpdata import lanes as mlanes
 from cdk_torch.kernels.mpdata import problem as mp
 from cdk_torch.kernels.mpdata import resident as mres
+from cdk_torch.kernels.mpdata import staged as mstaged
 
 pytestmark = pytest.mark.gpu
 
@@ -289,4 +293,131 @@ def test_driver_runs_dss_families_through_the_kernels(cuda, kernel, nelemd):
     results = run_kernel(kernel, cfg, iters=2, trials=1, quiet=True,
                          device=cuda)
     assert len(results) == len(variants(kernel)) and all(r.ok for r in results), results
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+
+
+@pytest.mark.parametrize("ncol", [8, 200])
+def test_fused_kernel_matches_plain(cuda, ncol):
+    """K4, both precisions, against its plain version (ragged column tile
+    at ncol=8); the elementwise stages round as the plain version's tensor
+    ops, so only the 4-term sums may differ in order."""
+    rng = np.random.default_rng(4)
+    dvv = torch.from_numpy(rng.standard_normal((4, 4))).float().to(cuda)
+    elem = torch.from_numpy(rng.uniform(0.5, 1.5, (5, 9, 16))).float().to(cuda)
+    q = torch.from_numpy(rng.standard_normal((5, 16, ncol))).float().to(cuda)
+    for prec in bfused.PRECISIONS:
+        before = bfused.fused_laplace.launches
+        out = bfused.fused_laplace(dvv, elem, q, 0.5, prec)
+        torch.cuda.synchronize()
+        assert bfused.fused_laplace.launches == before + 1
+        ref = bfused.fused_laplace_plain(dvv, elem, q, 0.5, prec)
+        assert float(ref.abs().max()) > 0
+        assert rel_l2(out, ref) < 1e-6, prec
+
+
+def test_operator_apply_kernel_counts_apart(cuda):
+    """K5 (the operator kernel at n = 1, exact) equals the exact batched
+    product and counts in its own counter, not K1's."""
+    rng = np.random.default_rng(5)
+    for dtype, gate in ((torch.float32, 2e-5), (torch.float64, 1e-13)):
+        L = torch.from_numpy(rng.standard_normal((5, 16, 16)) / 4).to(cuda, dtype)
+        q = torch.from_numpy(rng.standard_normal((5, 16, 40))).to(cuda, dtype)
+        k1, k5 = bres.bd8_resident.launches, bres.apply_operator_pallas.launches
+        out = bres.apply_operator_pallas(L, q)
+        torch.cuda.synchronize()
+        assert bres.apply_operator_pallas.launches == k5 + 1
+        assert bres.bd8_resident.launches == k1
+        assert rel_l2(out, torch.bmm(L, q)) < gate
+
+
+STAGED = (mstaged.advect_fused, mstaged.advect_packed,
+          mstaged.advect_staged_resident)
+
+
+@pytest.mark.parametrize("geom", [(4, 8, 12), (5, 5, 9)])
+def test_staged_kernel_matches_plain(cuda, geom):
+    """The staged kernel (K6, K7, K8 wrappers) against the staged reference
+    stepped n times, n = 0, 1, 4, at f32, f64 and bf16 (an odd slice count:
+    the port has no even-slice guard); each wrapper counts its own launch."""
+    s, nx, nz = geom
+    cfg = with_overrides(MpdataConfig(), nslices=s, nx=nx, nz=nz)
+    for dtype, gate_f, gate_flux in ((torch.float32, 1e-6, 1e-5),
+                                     (torch.float64, 1e-13, 1e-13),
+                                     (torch.bfloat16, 1e-2, 1e-1)):
+        d = mp.init_data(cfg).to(cuda, dtype)
+        args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+        for wrapper in STAGED:
+            for n in (0, 1, 4):
+                before = [w.launches for w in STAGED]
+                f_k, flux_k = wrapper(*args, n)
+                torch.cuda.synchronize()
+                assert [w.launches for w in STAGED] == [
+                    b + (w is wrapper) for w, b in zip(STAGED, before)]
+                f_p, flux_p = mstaged.advect_staged_plain(*args, n)
+                assert f_k.dtype == dtype
+                assert rel_l1(f_k, f_p) < gate_f, (wrapper.__name__, dtype, n)
+                assert rel_l1(flux_k, flux_p) < gate_flux, (wrapper.__name__, dtype, n)
+
+
+def test_hoisted_wrapper_counts_apart(cuda):
+    """K9 runs K2's kernel and counts in its own counter."""
+    d = mp.init_data(with_overrides(MpdataConfig(), nslices=4, nx=8,
+                                    nz=12)).to(cuda)
+    args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+    k2, k9 = mres.advect_resident.launches, mres.advect_hoisted_resident.launches
+    got = mres.advect_hoisted_resident(*args, 3)
+    torch.cuda.synchronize()
+    assert (mres.advect_resident.launches,
+            mres.advect_hoisted_resident.launches) == (k2, k9 + 1)
+    want = mres.advect_resident(*args, 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_staged_kernel_refuses_oversized_slice(cuda):
+    cfg = with_overrides(MpdataConfig(), nslices=1, nx=2048, nz=58)
+    d = mp.init_data(cfg).to(cuda)
+    with pytest.raises(UnsupportedConfigError, match="shared memory"):
+        mstaged.advect_staged_resident(d.f, d.u, d.w, d.rho, d.rhow, d.adz,
+                                       d.flux, 1)
+
+
+@pytest.mark.parametrize("geom", [(4, 8, 12), (37, 5, 9), (64, 32, 58)])
+def test_lanes_kernel_matches_plain(cuda, geom):
+    """K10 against its plain version in the (x, z, s) layout, f32 and f64,
+    one step and three chained (slice counts below, off and on a warp)."""
+    s, nx, nz = geom
+    cfg = with_overrides(MpdataConfig(), nslices=s, nx=nx, nz=nz)
+    for dtype, gate_f, gate_flux in ((torch.float32, 1e-6, 1e-5),
+                                     (torch.float64, 1e-13, 1e-13)):
+        d = mp.init_data(cfg).to(cuda, dtype)
+        xzs = [mlanes.to_xzs(getattr(d, n)) for n in mlanes.FIELDS]
+        k, p = xzs[0], xzs[0]
+        fk, fp = xzs[6], xzs[6]
+        for _ in range(3):
+            before = mlanes.advect_lanes.launches
+            k, fk = mlanes.advect_lanes(k, *xzs[1:6], fk)
+            torch.cuda.synchronize()
+            assert mlanes.advect_lanes.launches == before + 1
+            p, fp = mlanes.advect_lanes_plain(p, *xzs[1:6], fp)
+            assert rel_l1(k, p) < gate_f and rel_l1(fk, fp) < gate_flux, dtype
+
+
+@pytest.mark.parametrize("kernel,cfg,names,wrappers", [
+    ("biharmonic", with_overrides(BiharmonicConfig(), nelemd=8, nlev=4,
+                                  qsize=2, dtype="float32"),
+     None, (bfused.fused_laplace, bres.apply_operator_pallas)),
+    ("mpdata", with_overrides(MpdataConfig(), nslices=4, nx=8, nz=12,
+                              dtype="float32"),
+     ["reference_jnp", "pallas_fused", "pallas_packed", "pallas_packed_bf16",
+      "pallas_resident", "pallas_lanes", "pallas_hoisted"],
+     STAGED + (mlanes.advect_lanes, mres.advect_hoisted_resident)),
+])
+def test_driver_runs_the_new_variants_through_their_kernels(cuda, kernel, cfg,
+                                                            names, wrappers):
+    """The variants ported with K4-K10 verify through the driver on the
+    card (the experimental ones requested), and each kernel was launched."""
+    before = [w.launches for w in wrappers]
+    results = run_kernel(kernel, cfg, variants=names, iters=2, trials=1,
+                         quiet=True, device=cuda)
+    assert results and all(r.ok for r in results), results
     assert all(w.launches > b for w, b in zip(wrappers, before))

@@ -18,6 +18,7 @@ from cdk_torch.core.config import (
     MpdataConfig,
     with_overrides,
 )
+from cdk_torch.core.norms import rel_l1
 from cdk_torch.core.registry import get, make_step, variants
 from cdk_torch.harness.driver import run_kernel
 from cdk_torch.harness.specs import get_spec
@@ -48,9 +49,16 @@ def _jax_output(kernel, name, cfg, data):
 
 
 EXPECTED = {
-    ("biharmonic", "float64"): ["reference_jnp", "fused_operator_bd8_resident"],
-    ("biharmonic", "float32"): ["reference_jnp", "fused_operator_bd8_resident",
-                                "fused_operator_bd8_resident_x3"],
+    ("biharmonic", "float64"): ["reference_jnp", "fused_operator",
+                                "fused_operator_bd", "fused_operator_bd8",
+                                "fused_operator_pallas",
+                                "fused_operator_bd8_resident"],
+    ("biharmonic", "float32"): ["reference_jnp", "fused_operator",
+                                "fused_operator_bd", "fused_operator_bf16",
+                                "fused_operator_bd8", "fused_operator_pallas",
+                                "fused_operator_bd8_resident",
+                                "fused_operator_bd8_resident_x3",
+                                "pallas_fused", "pallas_fused_bf16"],
     ("biharmonic_dss", "float64"): [
         "reference_jnp", "fused_operator", "fused_operator_f32",
         "fused_operator_bd8", "fused_operator_bd8_resident",
@@ -71,8 +79,14 @@ EXPECTED = {
         "fused_operator_rowchain",
         "fused_operator_rowchain_x3", "fused_operator_rowchain_sq",
         "fused_operator_rowchain_sq_x3"],
-    ("mpdata", "float64"): ["reference_jnp", "pallas_xmajor"],
-    ("mpdata", "float32"): ["reference_jnp", "pallas_xmajor"],
+    # the experimental pallas_packed_bf16 and pallas_lanes run only when
+    # requested
+    ("mpdata", "float64"): ["reference_jnp", "pallas_fused", "pallas_packed",
+                            "pallas_resident", "pallas_hoisted",
+                            "pallas_xmajor"],
+    ("mpdata", "float32"): ["reference_jnp", "pallas_fused", "pallas_packed",
+                            "pallas_resident", "pallas_hoisted",
+                            "pallas_xmajor"],
     # the experimental pallas_rows and pallas_lanegather run only when
     # requested; the bf16 forms have no f64
     ("cke", "float64"): ["reference_jnp", "gather_peradv", "gather_selfold",
@@ -108,6 +122,19 @@ def test_run_kernel_cke_every_registered_variant():
     assert [r.variant for r in results] == [
         n for n in names if not n.endswith("_bf16")]
     assert all(r.ok for r in results), [(r.variant, r.metrics) for r in results]
+
+
+@pytest.mark.parametrize("kernel,names", [
+    ("biharmonic", ["fused_operator_bd8_bf16"]),
+    ("mpdata", ["pallas_packed_bf16", "pallas_lanes"]),
+])
+def test_run_kernel_experimental_variants_when_requested(kernel, names):
+    """The experimental forms verify through the driver at f32 when
+    requested (the bf16 ones at the loose gate)."""
+    cfg = with_overrides(SMALL[kernel], dtype="float32")
+    results = run_kernel(kernel, cfg, variants=names, iters=2, trials=1,
+                         quiet=True, device="cpu")
+    assert [(r.variant, r.ok) for r in results] == [(n, True) for n in names]
 
 
 def test_run_kernel_device_init():
@@ -168,10 +195,16 @@ def listed():
 
 
 def test_cli_list_prints_the_five_variants(listed):
-    """The biharmonic and mpdata variants, five in all."""
-    assert listed["biharmonic"] + listed["mpdata"] == [
-        "reference_jnp", "fused_operator_bd8_resident",
-        "fused_operator_bd8_resident_x3", "reference_jnp", "pallas_xmajor"]
+    """The biharmonic and mpdata variants: the first five ported, now with
+    the rest of both families (19 in all)."""
+    assert listed["biharmonic"] == [
+        "reference_jnp", "fused_operator", "fused_operator_bd",
+        "fused_operator_bf16", "fused_operator_bd8", "fused_operator_bd8_bf16",
+        "fused_operator_pallas", "fused_operator_bd8_resident",
+        "fused_operator_bd8_resident_x3", "pallas_fused", "pallas_fused_bf16"]
+    assert listed["mpdata"] == [
+        "reference_jnp", "pallas_fused", "pallas_packed", "pallas_packed_bf16",
+        "pallas_resident", "pallas_lanes", "pallas_hoisted", "pallas_xmajor"]
 
 
 def test_cli_list_shows_the_cke_variants(listed):
@@ -184,9 +217,9 @@ def test_cli_list_shows_the_cke_variants(listed):
 
 
 def test_cli_list_shows_33_variants_and_the_dss_families(listed):
-    """35 variants in all: the 33 first listed and the two torus resident
-    forms (K19)."""
-    assert sum(map(len, listed.values())) == 35
+    """49 variants in all, the JAX package's: the DSS families as before,
+    and the 14 biharmonic and mpdata variants ported since."""
+    assert sum(map(len, listed.values())) == 49
     assert listed["biharmonic_dss"] == [
         "reference_jnp", "fused_operator", "fused_operator_f32",
         "fused_operator_bf16", "fused_operator_bd8",
@@ -251,3 +284,53 @@ def test_cli_json_and_device_refusal(tmp_path, monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["run", "mpdata", "--set", "nslices=2"])
+
+
+def test_cli_integrate_matches_jax_integrate(tmp_path):
+    """`integrate mpdata --variant pallas_fused --steps 3 --dtype float64`
+    writes the JAX CLI's state within the f64 gate."""
+    from cdk_torch import cli
+    from cdk_tpu import cli as jcli
+
+    args = ["integrate", "mpdata", "--variant", "pallas_fused", "--steps", "3",
+            "--dtype", "float64", "--set", "nslices=6"]
+    mine, theirs = tmp_path / "torch.npz", tmp_path / "jax.npz"
+    assert cli.main(args + ["--out", str(mine), "--device", "cpu"]) == 0
+    assert jcli.main(args + ["--out", str(theirs)]) == 0
+    got, want = np.load(mine), np.load(theirs)
+    assert sorted(got) == sorted(want) == ["out0", "out1"]
+    assert got["out0"].shape == (6, 38, 57) and got["out0"].dtype == np.float64
+    for key in want:
+        assert rel_l1(got[key], want[key]) < 1e-13
+
+
+def test_cli_integrate_without_a_loop_chains_steps(capsys):
+    """A variant with no loop of its own runs the spec's chained steps."""
+    from cdk_torch import cli
+
+    assert cli.main(["integrate", "biharmonic", "--steps", "2", "--set",
+                     "nelemd=3", "--set", "nlev=4", "--set", "qsize=2",
+                     "--variant", "fused_operator_bd", "--device", "cpu"]) == 0
+    assert "biharmonic/fused_operator_bd x2: out0 shape=(3, 2, 4, 4, 4)" in (
+        capsys.readouterr().out)
+
+
+def test_cli_verify_runs_the_port_tests(monkeypatch):
+    """`verify` hands the port's test files to pytest and returns its
+    exit code; without jax, only the card's tests with --noconftest."""
+    from cdk_torch import cli
+
+    calls = []
+
+    def fake_run(cmd, cwd):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 3)
+
+    monkeypatch.setattr(cli.subprocess, "run", fake_run)
+    assert cli.main(["verify"]) == 3
+    files = [Path(a).name for a in calls[0] if a.endswith(".py")]
+    assert calls[0][1:4] == ["-m", "pytest", "-q"]
+    assert files == sorted(p.name for p in (ROOT / "tests").glob("test_torch_*.py"))
+    monkeypatch.setitem(sys.modules, "jax", None)  # import jax raises
+    assert cli.main(["verify"]) == 3
+    assert "--noconftest" in calls[1] and calls[1][-1].endswith("test_torch_gpu.py")
