@@ -11,6 +11,8 @@ place that loads both packages.
 Kernels:
   - biharmonic: HOMME spectral-element tensor-hyperviscosity weak Laplacian
   - mpdata: SAM/MMF MPDATA positive-definite monotonic 2-D tracer advection
+    (and its domain-decomposed forms in ``dist``, on a mesh of shards on
+    one device)
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,9 @@
   python -m cdk_torch integrate mpdata --steps N --variant pallas_fused
          [--dtype float32|float64] [--out state.npz] [--set key=value ...]
          [--device cuda|cpu]
+  python -m cdk_torch scaling mpdata [--devices 1,2,4,8] [--nx-per-device N]
+         [--steps N] [--no-overlap] [--overlap-gain] [--kstep K]
+         [--device cuda|cpu]
   python -m cdk_torch verify
 
 `--namelist` reads a reference-format nested.nml (cke only); `--set`
@@ -16,6 +19,12 @@ overrides apply on top of it.
 `run` exits 1 if any variant fails its verification or crashes.
 `integrate` runs N steps of one variant from the host init (its `loop`
 where it has one) and saves the final state as out0, out1, ... in an npz.
+`scaling mpdata` runs the decomposed MPDATA sweeps on a mesh of that many
+shards on one device (`dist/mesh.py`): x-decomposed weak scaling (the split
+step unless --no-overlap), the slice-batch sweep, and with --overlap-gain
+and --kstep the serialized-vs-split step and the per-step vs the kstep
+loop at the largest shard count.  The biharmonic and cke sweeps are not
+ported yet: `scaling biharmonic|cke|all` exits 2.
 `verify` runs the port's tests with pytest and exits with pytest's code:
 tests/test_torch_*.py where jax imports (they compare with the JAX
 package), else tests/test_torch_gpu.py alone, which imports no jax.
@@ -84,9 +93,28 @@ def main(argv=None) -> int:
                       metavar="key=value")
     intp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
+    scalep = sub.add_parser(
+        "scaling", help="scaling sweeps of the dist steps on a mesh of "
+        "shards on one device (mpdata)")
+    scalep.add_argument("kernel", nargs="?", default="all",
+                        choices=["mpdata", "biharmonic", "cke", "all"])
+    scalep.add_argument("--devices", default="1,2,4,8",
+                        help="shard counts (shards on one device)")
+    scalep.add_argument("--nx-per-device", type=int, default=64)
+    scalep.add_argument("--steps", type=int, default=20)
+    scalep.add_argument("--no-overlap", action="store_true")
+    scalep.add_argument("--overlap-gain", action="store_true",
+                        help="also time the serialized against the split step")
+    scalep.add_argument("--kstep", type=int, default=0,
+                        help="also time the communication-avoiding kstep "
+                        "loop against the per-step loop")
+    scalep.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
     args = p.parse_args(argv)
     if args.cmd == "verify":
         return verify()
+    if args.cmd == "scaling":
+        return scaling(args)
     if args.cmd == "run" and args.namelist:
         if args.kernel != "cke":
             p.error("--namelist is for the cke kernel only")
@@ -185,6 +213,34 @@ def integrate(kernel: str, variant: str, steps: int, dtype: str,
     if out:
         np.savez(out, **leaves)
         print(f"wrote {out}")
+    return 0
+
+
+def scaling(args) -> int:
+    """`scaling mpdata`; the other families' sweeps wait for their dist
+    modules."""
+    if args.kernel != "mpdata":
+        print(f"scaling {args.kernel}: not ported yet (only mpdata)",
+              file=sys.stderr)
+        return 2
+    from cdk_torch.harness import scaling as sc
+
+    shards = tuple(int(x) for x in args.devices.split(","))
+    sc.weak_scaling_mpdata(device_counts=shards,
+                           nx_per_device=args.nx_per_device,
+                           n_steps=args.steps, overlap=not args.no_overlap,
+                           device=args.device)
+    sc.weak_scaling_mpdata_slices(device_counts=shards, n_steps=args.steps,
+                                  device=args.device)
+    if args.overlap_gain:
+        sc.overlap_gain_mpdata(n_devices=shards[-1],
+                               nx_per_device=args.nx_per_device,
+                               n_steps=args.steps, device=args.device)
+    if args.kstep:
+        sc.comm_avoid_gain_mpdata(n_devices=shards[-1],
+                                  nx_per_device=args.nx_per_device,
+                                  kstep=args.kstep, n_steps=args.steps,
+                                  device=args.device)
     return 0
 
 

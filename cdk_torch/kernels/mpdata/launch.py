@@ -1,8 +1,11 @@
-"""Binding of csrc/mpdata_resident.cu, the MPDATA step kernel in its
-hoisted form (K2, K9; see resident.py) and its staged form (K6, K7, K8;
-see staged.py): the ctypes entry points, the checks every wrapper makes,
-`step_kernel`, which makes a wrapper with its own launch count, and
-`resident_forms`, the registry forms of an n-steps-per-launch variant.
+"""Binding of the MPDATA kernels: csrc/mpdata_resident.cu, the step kernel
+in its hoisted form (K2, K9; see resident.py) and its staged form (K6, K7,
+K8; see staged.py), and csrc/mpdata_masked.cu, the masked-global step
+(K20-K25; see masked.py).  The ctypes entry points, the shared-memory
+refusal and the launch count every wrapper of both sources uses
+(`require_smem`, `counted`), the checks of the resident/staged wrappers,
+`step_kernel`, which makes such a wrapper, and `resident_forms`, the
+registry forms of an n-steps-per-launch variant.
 """
 
 from __future__ import annotations
@@ -26,11 +29,35 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in ("cdk_mpdata_masked_f32", "cdk_mpdata_masked_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.cdk_mpdata_resident_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.cdk_mpdata_resident_smem_bytes.restype = ctypes.c_longlong
+    lib.cdk_mpdata_masked_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.cdk_mpdata_masked_smem_bytes.restype = ctypes.c_longlong
     lib.cdk_max_shared_optin.argtypes = [ctypes.c_int]
     lib.cdk_max_shared_optin.restype = ctypes.c_int
     return lib
+
+
+def require_smem(need: int, device: torch.device, what: str) -> None:
+    """Refuse (UnsupportedConfigError, never a fallback) a launch whose
+    block needs more than the card's opt-in shared memory."""
+    have = _lib().cdk_max_shared_optin(device.index)
+    if need > have:
+        raise UnsupportedConfigError(
+            f"{what} needs {need} B of shared memory; the card allows "
+            f"{have} B per block")
+
+
+def counted(fn):
+    """Give the kernel wrapper `fn` its launch count, to which it adds one
+    where it launches its kernel and nowhere else."""
+    fn.launches = 0  # kernel launches in this process
+    return fn
 
 
 _ENTRY = {(True, torch.float32): "cdk_mpdata_resident_f32",
@@ -67,13 +94,9 @@ def _launch(f, u, w, rho, rhow, adz, flux, n, hoist):
     s, xf, nzm = f.shape
     nx = xf - 6
     lib = _lib()
-    need = lib.cdk_mpdata_resident_smem_bytes(nx, nzm, f.element_size(),
-                                              int(hoist))
-    have = lib.cdk_max_shared_optin(f.device.index)
-    if need > have:
-        raise UnsupportedConfigError(
-            f"one slice (nx={nx}, nzm={nzm}, {f.dtype}) needs {need} B of "
-            f"shared memory; the card allows {have} B per block")
+    require_smem(lib.cdk_mpdata_resident_smem_bytes(nx, nzm, f.element_size(),
+                                                    int(hoist)),
+                 f.device, f"one slice (nx={nx}, nzm={nzm}, {f.dtype})")
     f_out = torch.empty_like(f)
     flux_out = torch.empty_like(flux)
     stream = torch.cuda.current_stream(f.device).cuda_stream
@@ -91,6 +114,7 @@ def step_kernel(name: str, hoist: bool, plain, doc: str):
     n steps.  CUDA tensors launch the kernel (never anything else); CPU
     tensors run `plain` with the same arguments."""
 
+    @counted
     def wrapper(f, u, w, rho, rhow, adz, flux, n: int):
         _validate(f, u, w, rho, rhow, adz, flux, n, hoist)
         if f.device.type == "cpu":
@@ -101,7 +125,6 @@ def step_kernel(name: str, hoist: bool, plain, doc: str):
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc
-    wrapper.launches = 0  # kernel launches in this process
     return wrapper
 
 

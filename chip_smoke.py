@@ -28,7 +28,11 @@ Phases, each printing its result; the first failure exits non-zero:
               then at rrearth 0.1 the launch depth each loop uses, each
               depth-k step also bitwise against k depth-1 launches, and
               every resident and rowchain loop(n) against n chained plain
-              steps for n in {1, 2, k, k+1, 2k+1}
+              steps for n in {1, 2, k, k+1, 2k+1}; the masked-global
+              MPDATA kernel K20-K25 on shard windows of the shipped config
+              (f32 and f64, 1 and 4 shards) and the production 8192 x 32 x
+              58 (f32, 1 shard; K24/K25 at kstep 2 and 4), K23 bitwise
+              equal to K22 and K25 to K24
   4. main     cdk_torch.harness.driver.run_kernel for biharmonic,
               biharmonic_dss, biharmonic_dss2d, mpdata and cke: shipped size
               with host init at f64 (every variant against the in-process
@@ -39,7 +43,16 @@ Phases, each printing its result; the first failure exits non-zero:
               non-experimental biharmonic and mpdata variant; for the DSS
               families also the exact _sq form; for cke also pallas_rows
               and pallas_lanegather)
-  5. counts   every kernel's launch counter rose during phase 4
+  5. dist     the decomposed MPDATA path on a mesh of shards on the card:
+              cdk_torch.harness.distbench.run_dist_legs (both mpdata legs at
+              the production preset on 1 shard, verified against
+              pallas_xmajor), `python -m cdk_torch scaling mpdata --devices
+              1,2,4 --overlap-gain --kstep 4`, and make_dist_step with the
+              "pallas" and "packed" cores and make_dist_loop(kstep=4,
+              split=False) at production f32; the per-step and kstep-4
+              loops timed at production f32 on 1 shard
+  6. counts   every kernel's launch counter rose during phase 4 (K1-K19)
+              or phase 5 (K2, K20-K25), each counted from zero
 
 Then the total wall time, one JSON line describing the kernels, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -118,19 +131,41 @@ def apply_ops(cols: float, prec: str, n_apply: int, other: int = 0) -> dict:
     return dict(ops=cols * (n_apply * APPLY + other))
 
 
-def mpdata_ops(nslices: int, nx: int, nzm: int, n: int, hoisted: bool) -> float:
-    """Operations of n MPDATA steps, counted from the stage code (each
-    add, mul, div, min, max, abs and negation one) over each stage's rows:
-    upwind fluxes 6 each, the flux sums 1, the upwind update 6, the
-    antidiffusive velocities 19 each (7 hoisted, plus 12 per point once for
-    the invariants), extrema and ratios 46, limited fluxes 10 each, the
-    final update 7."""
+def _step_ops(nx: int, hoisted: bool) -> int:
+    """Operations per level of one MPDATA step that produces nx columns,
+    counted from the stage code (each add, mul, div, min, max, abs and
+    negation one) over each stage's rows: upwind fluxes 6 each, the flux
+    sums 1, the upwind update 6, the antidiffusive velocities 19 each (7
+    hoisted), extrema and ratios 46, limited fluxes 10 each, the final
+    update 7."""
     anti = 7 if hoisted else 19
-    per_level = (6 * (nx + 5) + 6 * (nx + 4) + 2 * nx + 6 * (nx + 4)
-                 + anti * (2 * nx + 5) + 46 * (nx + 2) + 10 * (2 * nx + 1)
-                 + 7 * nx)
-    once = 12 * (2 * nx + 5) if hoisted else 0
-    return float(nslices * nzm * (n * per_level + once))
+    return (6 * (nx + 5) + 6 * (nx + 4) + 2 * nx + 6 * (nx + 4)
+            + anti * (2 * nx + 5) + 46 * (nx + 2) + 10 * (2 * nx + 1) + 7 * nx)
+
+
+def _invariant_ops(nx: int) -> int:
+    """Operations per level of the hoisted invariants, 12 per point over
+    the antidiffusive velocities' rows, once per launch."""
+    return 12 * (2 * nx + 5)
+
+
+def mpdata_ops(nslices: int, nx: int, nzm: int, n: int, hoisted: bool) -> float:
+    """Operations of n MPDATA steps on nx columns (_step_ops, plus the
+    invariants once where they are hoisted)."""
+    once = _invariant_ops(nx) if hoisted else 0
+    return float(nslices * nzm * (n * _step_ops(nx, hoisted) + once))
+
+
+def masked_ops(nslices: int, X: int, nzm: int, n: int, hoisted: bool) -> float:
+    """Operations of n masked-global MPDATA steps on a window of X columns
+    whose owned block is X - 6n columns (halo 3n a side).  Step j = 1..n
+    need only produce the X - 6j columns the owned outputs still depend on
+    (the cone), each stage over its rows for that many outputs as
+    mpdata_ops counts them; the hoisted invariants once over the first
+    step's rows.  The masks cost no arithmetic."""
+    steps = sum(_step_ops(X - 6 * j, hoisted) for j in range(1, n + 1))
+    once = _invariant_ops(X - 6) if hoisted else 0
+    return float(nslices * nzm * (steps + once))
 
 
 def cke_ops(nedges: int, nvert: int, nadv: int) -> float:
@@ -712,6 +747,114 @@ def phase_dss_kernels(dev, card):
     return rows
 
 
+def phase_masked_kernels(dev, card):
+    """K20-K25 against their plain versions on shard windows (the windows
+    the dist steps hand them): shipped f32 and f64 on 1 and 4 shards, and
+    production f32 on 1 shard, K24/K25 at kstep 2 and 4; K23 and K25
+    bitwise against K22 and K24 on the concatenated window; returns the
+    JSON rows (production f32, one step, kstep 4 for K24/K25)."""
+    import torch
+
+    from cdk_torch.core.config import MpdataConfig, production_config
+    from cdk_torch.dist import mesh as dmesh
+    from cdk_torch.dist import mpdata as dmp
+    from cdk_torch.kernels.mpdata import masked as mk
+    from cdk_torch.kernels.mpdata import problem as mp
+
+    rows = {}
+    gates = {torch.float32: (1e-6, 1e-5), torch.float64: (1e-13, 1e-13)}
+    shipped = MpdataConfig()
+    cases = [("shipped", shipped, "float32", 1, (1, 2)),
+             ("shipped", shipped, "float64", 1, (1, 2)),
+             ("shipped", shipped, "float32", 4, (1,)),
+             ("shipped", shipped, "float64", 4, (1,)),
+             ("production", production_config("mpdata"), "float32", 1, (1, 2, 4))]
+    for label, base, dtype, P, ksteps in cases:
+        cfg = MpdataConfig(nslices=base.nslices, dtype=dtype, device_init=True)
+        d = mp.init_data(cfg, dev)
+        m = dmesh.make_mesh(P, dev)
+        si, _, _ = dmp.make_dist_step(cfg, m)
+        f_s, u_s, w_s, (rho, rhow, adz, _) = si(d)
+        aux = (rho, rhow, adz)
+        p = min(1, P - 1)  # an inner shard where there is one
+        chunk = f_s.shape[2]
+        gf, gflux = gates[d.f.dtype]
+        for kstep in ksteps:
+            h = 3 * kstep
+            strips = dmesh.exchange_strips(f_s, h)
+            lh, rh, own = strips[0][p], strips[1][p], f_s[p]
+            f_e, u_e, w_e = (dmesh.exchange(a, h)[p] for a in (f_s, u_s, w_s))
+            gi0 = p * chunk - 2 - h
+            X = f_e.shape[1]
+            kw = dict(nx=cfg.nx, nzm=cfg.nzm)
+            win = dict(owned_lo=h, owned_hi=h + chunk)
+            if kstep == 1:
+                tests = [
+                    ("K20", lambda: mk.masked_step_pallas(
+                        f_e, u_e, w_e, *aux, gi0, nx=cfg.nx, **win), False, 1),
+                    ("K21", lambda: mk.masked_step_pallas_packed(
+                        f_e, u_e, w_e, *aux, gi0, **kw, **win), False, 1),
+                    ("K22", lambda: mk.masked_step_xmajor(
+                        f_e, u_e, w_e, *aux, gi0, **kw, **win), False, 1),
+                    ("K23", lambda: mk.masked_step_xmajor_split(
+                        own, lh, rh, u_e, w_e, *aux, gi0, **kw, halo=h), True, 1)]
+            else:
+                tests = []
+            if kstep > 1:
+                tests += [
+                    ("K24", lambda: mk.masked_kloop_xmajor(
+                        f_e, u_e, w_e, *aux, gi0, **kw, **win, nsteps=kstep),
+                     False, kstep),
+                    ("K25", lambda: mk.masked_kloop_xmajor_split(
+                        own, lh, rh, u_e, w_e, *aux, gi0, **kw, halo=h,
+                        nsteps=kstep), True, kstep)]
+            outs = {}
+            for tag, kernel, split, n in tests:
+                hoisted = tag in ("K24", "K25")
+
+                def plain():
+                    args = (f_e, u_e, w_e, *aux, gi0, cfg.nx, h, h + chunk)
+                    o = (mk.masked_kloop_plain(*args, n) if hoisted
+                         else mk.masked_step_plain(*args))
+                    return (o[0][:, h:h + chunk], o[1]) if split else o
+
+                out, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                outs[tag] = out
+                ef, mae_f, big_f = errors(out[0], ref[0], "l1")
+                efl, mae_fl, big_fl = errors(out[1], ref[1], "l1")
+                ms = timed_ms(kernel, REPS)
+                plain_ms = timed_ms(plain, REPS)
+                print(f"[3 {tag}] {label:10s} S={cfg.nslices} nx=32 nz=58 {dtype:7s} "
+                      f"P={P} shard {p} X={X} n={n}: rel_l1 f {ef:.3e} flux "
+                      f"{efl:.3e} (gates {gf:g}/{gflux:g}) max_abs "
+                      f"{max(mae_f, mae_fl):.3e} of {max(big_f, big_fl):.3e} "
+                      f"f bitwise={torch.equal(out[0], ref[0])}; kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms [{card}]")
+                if not (ef < gf and efl < gflux and big_f > 0 and big_fl > 0
+                        and bool(torch.isfinite(out[0]).all())
+                        and bool(torch.isfinite(out[1]).all())):
+                    fail(f"{tag} {label} {dtype} P={P} kstep={kstep}: rel_l1 f "
+                         f"{ef:.3e} flux {efl:.3e}")
+                if label == "production" and (n == 1 or (hoisted and n == 4)):
+                    ins = ((own, lh, rh) if split else (f_e,)) + (u_e, w_e, *aux)
+                    rows[tag] = dict(
+                        max_abs_err=max(mae_f, mae_fl), ms=ms, plain_ms=plain_ms,
+                        **bound(ins + out, masked_ops(cfg.nslices, X, cfg.nzm, n,
+                                                      hoisted)))
+            for split_tag, whole_tag in (("K23", "K22"), ("K25", "K24")):
+                if split_tag in outs:
+                    a, b = outs[split_tag], outs[whole_tag]
+                    if not (torch.equal(a[0], b[0][:, h:h + chunk])
+                            and torch.equal(a[1], b[1])):
+                        fail(f"{split_tag} differs from {whole_tag} on the "
+                             f"concatenated window ({label} {dtype} P={P})")
+                    print(f"[3 {split_tag}={whole_tag}] {label} {dtype} P={P} "
+                          f"kstep={kstep}: bitwise equal on the owned columns")
+        del d, f_s, u_s, w_s
+    return rows
+
+
 def phase_main(dev, card):
     import cdk_torch.kernels  # noqa: F401  (registers the variants)
     from cdk_torch.core import registry
@@ -768,6 +911,67 @@ def phase_main(dev, card):
                 fail(f"{kernel} {label} {r.variant}: {r.metrics} {r.note}")
 
 
+def phase_dist(dev, card):
+    """The decomposed MPDATA path on a mesh of shards on the card."""
+    import torch
+
+    from cdk_torch import cli
+    from cdk_torch.core.config import production_config
+    from cdk_torch.core.norms import rel_l1
+    from cdk_torch.dist import mesh as dmesh
+    from cdk_torch.dist import mpdata as dmp
+    from cdk_torch.harness.distbench import run_dist_legs
+    from cdk_torch.kernels.mpdata import problem as mp
+
+    t0 = time.perf_counter()
+    for r in run_dist_legs({"mpdata": "pallas_xmajor"}, device=dev):
+        print(f"[5 dist] leg {r.family}: {r.path} "
+              f"{'ok' if r.ok else 'FAILED'} {r.seconds_per_call * 1e6:.3f} us/step "
+              f"(band {r.slope_min * 1e6:.3f}-{r.slope_max * 1e6:.3f}), "
+              f"{r.grid_points_per_s / 1e9:.4f} G pts/s, err {r.err:.3e} "
+              f"(tol {r.tol:g}) [{card}]")
+        if not r.ok:
+            fail(f"dist leg {r.family}: err {r.err} {r.note}")
+    print(f"[5 dist] legs {time.perf_counter() - t0:.1f} s")
+    rc = cli.main(["scaling", "mpdata", "--devices", "1,2,4", "--overlap-gain",
+                   "--kstep", "4"])
+    if rc != 0:
+        fail(f"scaling mpdata exited {rc}")
+
+    cfg = production_config("mpdata")
+    m = dmesh.make_mesh(1, dev)
+    d = mp.init_data(cfg, dev)
+    si, step, gather = dmp.make_dist_step(cfg, m)
+    args = si(d)
+    want = step(*args)
+    for kernel in ("pallas", "packed"):
+        got = dmp.make_dist_step(cfg, m, kernel=kernel)[1](*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"dist step kernel={kernel} differs from the x-major core")
+    k24 = dmp.make_dist_loop(cfg, m, kstep=4, split=False)(*args, 8)
+    k25 = dmp.make_dist_loop(cfg, m, kstep=4)(*args, 8)
+    chained = args[0], args[3][3]
+    for _ in range(8):
+        chained = step(chained[0], args[1], args[2], (*args[3][:3], chained[1]))
+    torch.cuda.synchronize()
+    err = max(rel_l1(gather(k24[0]), gather(chained[0])),
+              rel_l1(k24[1], chained[1]))
+    if not (torch.equal(k24[0], k25[0]) and torch.equal(k24[1], k25[1])
+            and err < 1e-5 and bool(torch.isfinite(k24[0]).all())):
+        fail(f"kstep-4 loop: split vs whole window or chained steps ({err:.3e})")
+    print(f"[5 dist] production f32 1 shard: step with the pallas and packed "
+          f"cores bitwise equal to x-major; kstep-4 loop split=False bitwise equal "
+          f"to split, rel_l1 {err:.3e} against 8 chained steps (gate 1e-5)")
+    # the per-step loop against the kstep-4 loop at production (scaling
+    # mpdata compares them at the small, launch-bound JAX defaults)
+    per_step = {k: timed_ms(lambda: dmp.make_dist_loop(cfg, m, kstep=k)(*args, 16),
+                            3) / 16 * 1e3 for k in (1, 4)}
+    print(f"[5 dist] production f32 1 shard, 16 steps: per-step loop (K23) "
+          f"{per_step[1]:.3f} us/step, kstep-4 loop (K25) {per_step[4]:.3f} "
+          f"us/step, ratio {per_step[4] / per_step[1]:.4f} [{card}]")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     dev, card = phase_device()
@@ -776,6 +980,7 @@ def main() -> int:
     rows.update(phase_fused_and_staged_kernels(dev, card))
     rows.update(phase_cke_kernels(dev, card))
     rows.update(phase_dss_kernels(dev, card))
+    rows.update(phase_masked_kernels(dev, card))
 
     from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
     from cdk_torch.kernels.biharmonic.dss2d_resident import dss2d_resident
@@ -789,7 +994,7 @@ def main() -> int:
     from cdk_torch.kernels.cke.onehot import cke_onehot
     from cdk_torch.kernels.cke.rows import cke_rows
     from cdk_torch.kernels.cke.staged import cke_staged
-    from cdk_torch.kernels.mpdata import staged
+    from cdk_torch.kernels.mpdata import masked, staged
     from cdk_torch.kernels.mpdata.lanes import advect_lanes
     from cdk_torch.kernels.mpdata.resident import (
         advect_hoisted_resident,
@@ -816,10 +1021,24 @@ def main() -> int:
     launches["K18"] = sum(n for k, n in depths.items() if k > 1)
     if launches["K16"] + launches["K18"] != rc.rowchain_step.launches:
         fail(f"step launches {rc.rowchain_step.launches} != by depth {depths}")
-    print(f"[5 counts] kernel launches during the main path: {launches}")
-    for k, n in launches.items():
+
+    dist_wrappers = {"K2": advect_resident,
+                     "K20": masked.masked_step_pallas,
+                     "K21": masked.masked_step_pallas_packed,
+                     "K22": masked.masked_step_xmajor,
+                     "K23": masked.masked_step_xmajor_split,
+                     "K24": masked.masked_kloop_xmajor,
+                     "K25": masked.masked_kloop_xmajor_split}
+    for w in dist_wrappers.values():
+        w.launches = 0
+    phase_dist(dev, card)
+    dist_launches = {k: w.launches for k, w in dist_wrappers.items()}
+    print(f"[6 counts] kernel launches during the main path: {launches}; "
+          f"during the dist path: {dist_launches}")
+    for k, n in list(launches.items()) + list(dist_launches.items()):
         if n <= 0:
-            fail(f"{k} was never launched by the main path")
+            fail(f"{k} was never launched by its path")
+    launches.update({k: n for k, n in dist_launches.items() if k != "K2"})
 
     import torch
 
@@ -867,13 +1086,21 @@ def main() -> int:
     meta["K19"] = dict(name="biharmonic_dss2d_resident",
                        source="cdk_torch/csrc/biharmonic_dss_resident.cu",
                        replaces=f"{tpu_rowchain}:66")
+    for k, name, line in (("K20", "mpdata_masked_step", 44),
+                          ("K21", "mpdata_masked_step_packed", 181),
+                          ("K22", "mpdata_masked_step_xmajor", 292),
+                          ("K23", "mpdata_masked_step_split", 355),
+                          ("K24", "mpdata_masked_kloop", 580),
+                          ("K25", "mpdata_masked_kloop_split", 605)):
+        meta[k] = dict(name=name, source="cdk_torch/csrc/mpdata_masked.cu",
+                       replaces=f"cdk_tpu/kernels/mpdata/pallas_masked.py:{line}")
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
                     replaces=meta[k]["replaces"], launches=launches[k],
                     **{"library_ms": None, **rows[k]})
                for k in sorted(meta, key=lambda k: int(k[1:]))]
-    if len(kernels) != 19:
-        fail(f"{len(kernels)} kernels described, want the 19 single-chip ones")
-    print(f"[6 wall] {time.perf_counter() - t0:.1f} s, build included")
+    if len(kernels) != 25:
+        fail(f"{len(kernels)} kernels described, want all 25")
+    print(f"[7 wall] {time.perf_counter() - t0:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

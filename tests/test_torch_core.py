@@ -173,7 +173,8 @@ def test_verify_gates_match_jax(dtype):
 
 def test_port_imports_no_jax():
     code = ("import cdk_torch, cdk_torch.cli, cdk_torch.kernels, "
-            "cdk_torch.harness.driver, sys; "
+            "cdk_torch.harness.driver, cdk_torch.dist.mpdata, "
+            "cdk_torch.harness.distbench, cdk_torch.harness.scaling, sys; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'cdk_tpu'))]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
@@ -231,7 +232,7 @@ def test_build_names_and_refuses_without_nvcc(tmp_path, monkeypatch):
                                     "biharmonic_resident.cu", "cke_lanegather.cu",
                                     "cke_onehot.cu", "cke_rows.cu",
                                     "cke_staged.cu", "mpdata_lanes.cu",
-                                    "mpdata_resident.cu"]
+                                    "mpdata_masked.cu", "mpdata_resident.cu"]
     assert tbuild._digest(cu) == tbuild._digest(list(cu))
     assert tbuild._digest(cu) != tbuild._digest(cu[:1])
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -2,8 +2,9 @@
 its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
 K12, K13 at ragged shapes, K14, K19 and the rowchain kernels K15-K18 on
 small and odd rings and tori, K4, K5, the staged MPDATA kernel behind K6,
-K7 and K8, K9 and K10), the shared-memory refusals, and the driver's main
-path through the kernels.  They skip without a CUDA card.
+K7 and K8, K9 and K10, the masked-global MPDATA kernel behind K20-K25), the
+shared-memory refusals, and the driver's and the dist forms' paths through
+the kernels.  They skip without a CUDA card.
 
 This file imports no jax, so it runs where the card is (no JAX there):
 
@@ -36,7 +37,10 @@ from cdk_torch.kernels.cke import problem as cp
 from cdk_torch.kernels.cke import rows as krows
 from cdk_torch.kernels.cke import staged as kst
 from cdk_torch.kernels.cke.reference import coef3_of, fsign1
+from cdk_torch.dist import mesh as dmesh
+from cdk_torch.dist import mpdata as dmp
 from cdk_torch.kernels.mpdata import lanes as mlanes
+from cdk_torch.kernels.mpdata import masked as mmask
 from cdk_torch.kernels.mpdata import problem as mp
 from cdk_torch.kernels.mpdata import resident as mres
 from cdk_torch.kernels.mpdata import staged as mstaged
@@ -421,3 +425,115 @@ def test_driver_runs_the_new_variants_through_their_kernels(cuda, kernel, cfg,
                          quiet=True, device=cuda)
     assert results and all(r.ok for r in results), results
     assert all(w.launches > b for w, b in zip(wrappers, before))
+
+
+MASKED = (mmask.masked_step_pallas, mmask.masked_step_pallas_packed,
+          mmask.masked_step_xmajor, mmask.masked_step_xmajor_split,
+          mmask.masked_kloop_xmajor, mmask.masked_kloop_xmajor_split)
+
+
+def _masked_window(d, lo, X):
+    """Columns [lo, lo + X) of the collocated fields, zero-extended past
+    the global grid, and gi0 = lo - 2."""
+    f, u, w = dmp.to_collocated(d)
+    pad = max(0, -lo), max(0, lo + X - f.shape[1])
+    cut = [torch.nn.functional.pad(a, (0, 0) + pad)[:, lo + pad[0]:lo + pad[0] + X]
+           .contiguous() for a in (f, u, w)]
+    return (*cut, (d.rho, d.rhow, d.adz), lo - 2)
+
+
+@pytest.mark.parametrize("geom", [(4, 8, 12), (5, 9, 9), (3, 40, 58)])
+def test_masked_kernels_match_plain(cuda, geom):
+    """K20-K25 against their plain versions on windows at the global edges
+    and inside the domain, f32 and f64: f bitwise (every operation rounds
+    as the plain version's), the flux partial within the gates (its column
+    sums run in another order); K23 = K22 and K25 = K24 bitwise on the
+    concatenated window; each wrapper counts its own launch."""
+    s, nx, nz = geom
+    cfg = with_overrides(MpdataConfig(), nslices=s, nx=nx, nz=nz)
+    for dtype, gate in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+        d = mp.init_data(cfg).to(cuda, dtype)
+        for kstep in (1, 2):
+            h = 3 * kstep
+            for lo in (-h, 4 - h):          # the left edge; inside
+                f, u, w, aux, gi0 = _masked_window(d, lo, nx + 6 + 2 * h - 4)
+                X = f.shape[1]
+                kw = dict(nx=nx, owned_lo=h, owned_hi=X - h)
+                strips = (f[:, :h].contiguous(), f[:, X - h:].contiguous())
+                own = f[:, h:X - h].contiguous()
+                calls = [
+                    (mmask.masked_step_pallas, lambda: mmask.masked_step_pallas(
+                        f, u, w, *aux, gi0, **kw), 1),
+                    (mmask.masked_step_pallas_packed,
+                     lambda: mmask.masked_step_pallas_packed(
+                         f, u, w, *aux, gi0, nzm=nz - 1, **kw), 1),
+                    (mmask.masked_step_xmajor, lambda: mmask.masked_step_xmajor(
+                        f, u, w, *aux, gi0, nzm=nz - 1, **kw), 1),
+                    (mmask.masked_kloop_xmajor, lambda: mmask.masked_kloop_xmajor(
+                        f, u, w, *aux, gi0, nzm=nz - 1, nsteps=kstep, **kw), kstep)]
+                for wrapper, call, n in calls:
+                    before = [x.launches for x in MASKED]
+                    f_k, flux_k = call()
+                    torch.cuda.synchronize()
+                    assert [x.launches for x in MASKED] == [
+                        b + (x is wrapper) for x, b in zip(MASKED, before)]
+                    f_p, flux_p = (mmask.masked_step_plain(f, u, w, *aux, gi0, nx, h, X - h)
+                                   if n == 1 and wrapper is not mmask.masked_kloop_xmajor
+                                   else mmask.masked_kloop_plain(f, u, w, *aux, gi0, nx,
+                                                                 h, X - h, n))
+                    assert torch.equal(f_k, f_p), (wrapper.__name__, dtype, lo)
+                    assert rel_l1(flux_k, flux_p) < gate, (wrapper.__name__, dtype)
+                    if wrapper is mmask.masked_step_xmajor:
+                        sp = mmask.masked_step_xmajor_split(
+                            own, *strips, u, w, *aux, gi0, nx=nx, nzm=nz - 1, halo=h)
+                    elif wrapper is mmask.masked_kloop_xmajor:
+                        sp = mmask.masked_kloop_xmajor_split(
+                            own, *strips, u, w, *aux, gi0, nx=nx, nzm=nz - 1,
+                            halo=h, nsteps=kstep)
+                    else:
+                        continue
+                    torch.cuda.synchronize()
+                    assert torch.equal(sp[0], f_k[:, h:X - h]) and torch.equal(sp[1], flux_k)
+
+
+def test_masked_kernel_refuses_oversized_window(cuda):
+    """A window of 140 columns x 57 levels needs 256,728 B at f32."""
+    d = mp.init_data(with_overrides(MpdataConfig(), nslices=1, nx=128,
+                                    nz=58)).to(cuda, torch.float32)
+    f, u, w, aux, gi0 = _masked_window(d, -3, 140)
+    with pytest.raises(UnsupportedConfigError, match="shared memory"):
+        mmask.masked_step_pallas(f, u, w, *aux, gi0, nx=128, owned_lo=3,
+                                 owned_hi=137)
+
+
+def test_dist_forms_run_through_the_masked_kernels(cuda):
+    """Every decomposed form on 3 shards on the card equals the same form
+    on the CPU (the plain versions) within the f64 gate, and launched its
+    kernel: K20, K21, K22 (step), K23 (loop), K24 and K25 (kloop), and K2
+    (slice-batch loop)."""
+    cfg = with_overrides(MpdataConfig(), nslices=4, nx=40, nz=12)
+    host = mp.init_data(cfg)
+    wrappers = MASKED + (mres.advect_resident,)
+    before = [w.launches for w in wrappers]
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        m = dmesh.make_mesh(3, dev)
+        out = {}
+        for kernel in ("pallas", "packed", "xmajor"):
+            si, step, gather = dmp.make_dist_step(cfg, m, kernel=kernel)
+            f, flux = step(*si(host))
+            out[kernel] = (gather(f), flux)
+        si, _, gather = dmp.make_dist_step(cfg, m)
+        args = si(host)
+        for name, loop in (("loop", dmp.make_dist_loop(cfg, m)),
+                           ("k25", dmp.make_dist_loop(cfg, m, kstep=2)),
+                           ("k24", dmp.make_dist_loop(cfg, m, kstep=2, split=False))):
+            f, flux = loop(*args, 4)
+            out[name] = (gather(f), flux)
+        si, loop = dmp.make_dist_loop_slices(cfg, m)
+        out["slices"] = loop(*si(host), 3)
+        runs[dev.type] = out
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    for name, (f, flux) in runs["cuda"].items():
+        f_c, flux_c = runs["cpu"][name]
+        assert rel_l1(f, f_c) < 1e-13 and rel_l1(flux, flux_c) < 1e-13, name
