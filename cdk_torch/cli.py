@@ -8,9 +8,9 @@
   python -m cdk_torch integrate mpdata --steps N --variant pallas_fused
          [--dtype float32|float64] [--out state.npz] [--set key=value ...]
          [--device cuda|cpu]
-  python -m cdk_torch scaling mpdata [--devices 1,2,4,8] [--nx-per-device N]
-         [--steps N] [--no-overlap] [--overlap-gain] [--kstep K]
-         [--device cuda|cpu]
+  python -m cdk_torch scaling mpdata|biharmonic [--devices 1,2,4,8]
+         [--nx-per-device N] [--nelemd-per-device N] [--steps N]
+         [--no-overlap] [--overlap-gain] [--kstep K] [--device cuda|cpu]
   python -m cdk_torch verify
 
 `--namelist` reads a reference-format nested.nml (cke only); `--set`
@@ -23,8 +23,12 @@ where it has one) and saves the final state as out0, out1, ... in an npz.
 shards on one device (`dist/mesh.py`): x-decomposed weak scaling (the split
 step unless --no-overlap), the slice-batch sweep, and with --overlap-gain
 and --kstep the serialized-vs-split step and the per-step vs the kstep
-loop at the largest shard count.  The biharmonic and cke sweeps are not
-ported yet: `scaling biharmonic|cke|all` exits 2.
+loop at the largest shard count.  `scaling biharmonic` runs the DSS sweeps
+likewise: ring weak scaling (the overlap step unless --no-overlap), torus
+weak scaling on most-square 2-D meshes, and with --overlap-gain and
+--kstep the serialized-vs-overlap ring step and the per-step vs the kstep
+loops of the ring and the rowchain.  The cke sweeps are not ported yet:
+`scaling cke|all` exits 2.
 `verify` runs the port's tests with pytest and exits with pytest's code:
 tests/test_torch_*.py where jax imports (they compare with the JAX
 package), else tests/test_torch_gpu.py alone, which imports no jax.
@@ -95,12 +99,13 @@ def main(argv=None) -> int:
 
     scalep = sub.add_parser(
         "scaling", help="scaling sweeps of the dist steps on a mesh of "
-        "shards on one device (mpdata)")
+        "shards on one device (mpdata, biharmonic)")
     scalep.add_argument("kernel", nargs="?", default="all",
                         choices=["mpdata", "biharmonic", "cke", "all"])
     scalep.add_argument("--devices", default="1,2,4,8",
                         help="shard counts (shards on one device)")
     scalep.add_argument("--nx-per-device", type=int, default=64)
+    scalep.add_argument("--nelemd-per-device", type=int, default=16)
     scalep.add_argument("--steps", type=int, default=20)
     scalep.add_argument("--no-overlap", action="store_true")
     scalep.add_argument("--overlap-gain", action="store_true",
@@ -217,15 +222,16 @@ def integrate(kernel: str, variant: str, steps: int, dtype: str,
 
 
 def scaling(args) -> int:
-    """`scaling mpdata`; the other families' sweeps wait for their dist
-    modules."""
-    if args.kernel != "mpdata":
-        print(f"scaling {args.kernel}: not ported yet (only mpdata)",
+    """`scaling mpdata|biharmonic`; the cke sweeps wait for `dist/cke.py`."""
+    if args.kernel not in ("mpdata", "biharmonic"):
+        print(f"scaling {args.kernel}: not ported yet (mpdata, biharmonic)",
               file=sys.stderr)
         return 2
     from cdk_torch.harness import scaling as sc
 
     shards = tuple(int(x) for x in args.devices.split(","))
+    if args.kernel == "biharmonic":
+        return _scaling_biharmonic(sc, args, shards)
     sc.weak_scaling_mpdata(device_counts=shards,
                            nx_per_device=args.nx_per_device,
                            n_steps=args.steps, overlap=not args.no_overlap,
@@ -241,6 +247,30 @@ def scaling(args) -> int:
                                   nx_per_device=args.nx_per_device,
                                   kstep=args.kstep, n_steps=args.steps,
                                   device=args.device)
+    return 0
+
+
+def _scaling_biharmonic(sc, args, shards) -> int:
+    from cdk_torch.dist.mesh import make_mesh2d
+
+    per = args.nelemd_per_device
+    sc.weak_scaling_biharmonic(device_counts=shards, nelemd_per_device=per,
+                               n_steps=args.steps, overlap=not args.no_overlap,
+                               device=args.device)
+    # each shard count as its most-square 2-D mesh
+    meshes = tuple(make_mesh2d(n, device=args.device).shape for n in shards)
+    sc.weak_scaling_dss2d(mesh_shapes=meshes,
+                          nelemd_per_device=per, n_steps=args.steps,
+                          device=args.device)
+    if args.overlap_gain:
+        sc.overlap_gain_biharmonic(n_devices=shards[-1], nelemd_per_device=per,
+                                   n_steps=args.steps, device=args.device)
+    if args.kstep:
+        sc.comm_avoid_gain_dss(n_devices=shards[-1], nelemd_per_device=per,
+                               kstep=args.kstep, n_steps=args.steps,
+                               device=args.device)
+        sc.comm_avoid_gain_dss2d(n_devices=shards[-1], kstep=args.kstep,
+                                 n_steps=args.steps, device=args.device)
     return 0
 
 

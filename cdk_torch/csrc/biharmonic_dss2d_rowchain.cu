@@ -7,7 +7,9 @@
 // with F = A.A, or one application of the precomposed A^2.  Replaces
 // cdk_tpu/kernels/biharmonic/pallas_dss2d_resident.py::
 // _rowchain_bridge_in_kernel, _rowchain_step_kernel,
-// _rowchain_bridge_out_kernel and _rowchain_stepk_blocked_kernel.  The
+// _rowchain_bridge_out_kernel and _rowchain_stepk_blocked_kernel, and in
+// the padded mode the dist entry points _rowchain_calls.step_t_padded,
+// .bridge_out_padded (through _padded_call) and .stepk_padded_factory.  The
 // elements form an (ex, ey) torus, e = a*ey + b, in the lane layout
 // (e, 16, ncol) with p = 4i + j.  jpass: element (a,b)'s j=0 points gain
 // (a,b-1 mod ey)'s j=np-1 points and its j=np-1 points gain (a,b+1)'s j=0
@@ -16,6 +18,18 @@
 // gain (a+1, b)'s i=0 points.  The TPU kernels keep whole element rows in
 // VMEM and shift by 13 and 12 sublane rows; here the neighbour indices are
 // explicit.
+//
+// Padded mode (pad = p >= 1): a shard of a row-decomposed torus with ex owned
+// rows.  The t input holds ex + 2p rows, owned row a at a + p and p rows
+// exchanged from each neighbour shard outside them; the operators and w hold
+// ex + 2p - 2 rows (the innermost p - 1 exchanged too).  Step s of a launch
+// computes the rows s+1 .. ex+2p-s-2 of the padded array, one fewer on each
+// side per step; their i-neighbours are the rows beside them, with no wrap
+// (the torus wraps through the exchange).  The last step's rows are the
+// owned ones; `out` holds them at their padded rows (out_pad: the shape of
+// t, whose other rows are scratch: earlier steps of a deeper launch write
+// some) or as ex rows.  A row of out or tmp is read only after a step of
+// the launch wrote it.  j stays mod ey in the row.
 //
 // Design: one thread per (element, column).  A production element row is
 // 72 x 16 = 1152 values per column, so rows for a useful column tile (and
@@ -55,8 +69,9 @@ constexpr int THREADS = TILE * ELEMS;
 
 enum Mode { BRIDGE_IN = 0, STEP = 1, BRIDGE_OUT = 2 };
 
+// pad = 0: the whole (ex, ey) torus, rows mod ex; pad > 0: the padded mode
 struct Torus {
-  int ex, ey, ncol;
+  int ex, ey, ncol, pad, out_pad;
 };
 
 // the j = 0 points (p = 0, 4, 8, 12) and the j = np-1 points (3, 7, 11, 15)
@@ -78,13 +93,19 @@ __device__ __forceinline__ void load(const T* f, size_t e, int ncol,
 }
 
 // d = ipass(t)[a,b] * w: t's i=0 points gain the up row's i=np-1 points,
-// its i=np-1 points the down row's i=0 points.
+// its i=np-1 points the down row's i=0 points.  a is t's row (padded in the
+// padded mode, where the neighbour rows are a -+ 1).
 template <typename T>
 __device__ __forceinline__ void ipass_w(const T* t, const T* wslot,
                                         int a, int b, int c, Torus g, T d[NPTS]) {
+  int au = a - 1, ad = a + 1;
+  if (g.pad == 0) {
+    if (a == 0) au = g.ex - 1;
+    if (a == g.ex - 1) ad = 0;
+  }
   const size_t e = (size_t)a * g.ey + b;
-  const size_t eu = (size_t)(a == 0 ? g.ex - 1 : a - 1) * g.ey + b;
-  const size_t ed = (size_t)(a == g.ex - 1 ? 0 : a + 1) * g.ey + b;
+  const size_t eu = (size_t)au * g.ey + b;
+  const size_t ed = (size_t)ad * g.ey + b;
   load(t, e, g.ncol, c, d);
 #pragma unroll
   for (int j = 0; j < NP; ++j) {
@@ -95,13 +116,14 @@ __device__ __forceinline__ void ipass_w(const T* t, const T* wslot,
   for (int p = 0; p < NPTS; ++p) d[p] *= wslot[p];
 }
 
-// One output element (a,b), column c, of the chosen mode.  ops: SLOTS
-// operators (slot s = element (a, b0-1+s mod ey)), lo plane at +lo_off;
-// ws: SLOTS inverse masses; sl/sc/sr: the left/own/right slots.
+// One output element (a,b), column c, of the chosen mode: a is its row in
+// src, ad in dst.  ops: SLOTS operators (slot s = element (a, b0-1+s mod
+// ey)), lo plane at +lo_off; ws: SLOTS inverse masses; sl/sc/sr: the
+// left/own/right slots.
 template <typename T, bool X3, bool SQ, int MODE>
 __device__ __forceinline__ void item(const T* ops, int lo_off, const T* ws,
-                                     const T* src, T* dst,
-                                     int a, int b, int c, int sl, int sc, int sr,
+                                     const T* src, T* dst, int a, int ad,
+                                     int b, int c, int sl, int sc, int sr,
                                      Torus g) {
   const int bl = b == 0 ? g.ey - 1 : b - 1;
   const int br = b == g.ey - 1 ? 0 : b + 1;
@@ -138,15 +160,15 @@ __device__ __forceinline__ void item(const T* ops, int lo_off, const T* ws,
       u[i * NP + NP - 1] += ur[i];
     }
   }
-  const size_t e = (size_t)a * g.ey + b;
+  const size_t e = (size_t)ad * g.ey + b;
 #pragma unroll
   for (int p = 0; p < NPTS; ++p) dst[(e * NPTS + p) * g.ncol + c] = u[p];
 }
 
 // op (ex*ey,16,16): A, or A^2 for a precomposed step; w (ex*ey,16);
-// in/out/tmp (ex*ey,16,ncol).  A grid-stride loop over tiles of (element
-// row a, ELEMS elements from b0, TILE columns); nsteps > 1 only under a
-// cooperative launch.  A deep launch reads, in later steps, the out and tmp
+// in/out/tmp (ex*ey,16,ncol); in the padded mode the row counts above.  A
+// grid-stride loop over tiles of (element row a, ELEMS elements from b0,
+// TILE columns); nsteps > 1 only under a cooperative launch.  A deep launch reads, in later steps, the out and tmp
 // it writes, so no pointer into them is __restrict__: a non-coherent load
 // could return a line cached before the grid sync.
 template <typename T, bool X3, bool SQ, int MODE>
@@ -160,7 +182,6 @@ rowchain_kernel(const T* __restrict__ op, const T* __restrict__ w,
   __shared__ T ws[SLOTS * NPTS];
   const int chunks = (g.ey + ELEMS - 1) / ELEMS;
   const int ctiles = (g.ncol + TILE - 1) / TILE;
-  const long ntiles = (long)g.ex * chunks * ctiles;
   const int tid = threadIdx.y * TILE + threadIdx.x;
 
   for (int s = 0; s < nsteps; ++s) {
@@ -168,31 +189,40 @@ rowchain_kernel(const T* __restrict__ op, const T* __restrict__ w,
     // step s-1 wrote (the input for s = 0)
     T* dst = (nsteps - 1 - s) % 2 == 0 ? out : tmp;
     const T* src = s == 0 ? in : (dst == out ? tmp : out);
+    // the rows this step computes: all ex, or (padded) r0 .. r0+rows-1 of the
+    // padded array; the operators' row is one less there, and dst's is
+    // p less where dst is an unpadded out
+    const int rows = g.pad ? g.ex + 2 * (g.pad - 1 - s) : g.ex;
+    const int r0 = g.pad ? s + 1 : 0;
+    const int op_off = g.pad ? 1 : 0;
+    const int dst_off = (dst == out && !g.out_pad) ? g.pad : 0;
+    const long ntiles = (long)rows * chunks * ctiles;
     for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int ct = static_cast<int>(tile % ctiles);
       const long rest = tile / ctiles;
       const int b0 = static_cast<int>(rest % chunks) * ELEMS;
-      const int a = static_cast<int>(rest / chunks);
+      const int a = r0 + static_cast<int>(rest / chunks);
+      const size_t aop = static_cast<size_t>(a - op_off);
       __syncthreads();  // the previous tile is done with ops and ws
       for (int i = tid; i < LO; i += THREADS) {
         int bs = (b0 - 1 + i / (NPTS * NPTS)) % g.ey;
         if (bs < 0) bs += g.ey;
-        const T l = op[((size_t)a * g.ey + bs) * NPTS * NPTS + i % (NPTS * NPTS)];
+        const T l = op[(aop * g.ey + bs) * NPTS * NPTS + i % (NPTS * NPTS)];
         bih::stage<T, X3>(ops, LO, i, l);
       }
       if constexpr (MODE != BRIDGE_IN) {
         for (int i = tid; i < SLOTS * NPTS; i += THREADS) {
           int bs = (b0 - 1 + i / NPTS) % g.ey;
           if (bs < 0) bs += g.ey;
-          ws[i] = w[((size_t)a * g.ey + bs) * NPTS + i % NPTS];
+          ws[i] = w[(aop * g.ey + bs) * NPTS + i % NPTS];
         }
       }
       __syncthreads();
       const int b = b0 + threadIdx.y;
       const int c = ct * TILE + threadIdx.x;
       if (b < g.ey && c < g.ncol)
-        item<T, X3, SQ, MODE>(ops, LO, ws, src, dst, a, b, c, threadIdx.y,
-                              threadIdx.y + 1, threadIdx.y + 2, g);
+        item<T, X3, SQ, MODE>(ops, LO, ws, src, dst, a, a - dst_off, b, c,
+                              threadIdx.y, threadIdx.y + 1, threadIdx.y + 2, g);
     }
     if (s + 1 < nsteps) cooperative_groups::this_grid().sync();
   }
@@ -200,12 +230,16 @@ rowchain_kernel(const T* __restrict__ op, const T* __restrict__ w,
 
 template <typename T, bool X3, bool SQ, int MODE>
 int launch(const void* op, const void* w, const void* in, void* out, void* tmp,
-           int ex, int ey, int ncol, int nsteps, void* stream) {
+           int ex, int ey, int ncol, int nsteps, int pad, int out_pad,
+           void* stream) {
   if (ex < 1 || ey < 1 || ncol < 1 || nsteps < 1 || (MODE != STEP && nsteps != 1)
-      || (nsteps > 1 && tmp == nullptr))
+      || (nsteps > 1 && tmp == nullptr) || pad < 0
+      || (pad > 0 && (MODE == BRIDGE_IN || pad != nsteps || (nsteps > 1 && !out_pad))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Torus g{ex, ey, ncol};
-  const long ntiles = (long)ex * ((ey + ELEMS - 1) / ELEMS) * ((ncol + TILE - 1) / TILE);
+  const Torus g{ex, ey, ncol, pad, pad > 0 && out_pad};
+  // the first step's rows: the most tiles of any step
+  const long ntiles = (long)(pad ? ex + 2 * pad - 2 : ex) * ((ey + ELEMS - 1) / ELEMS)
+                      * ((ncol + TILE - 1) / TILE);
   auto kern = rowchain_kernel<T, X3, SQ, MODE>;
   const T* op_ = static_cast<const T*>(op);
   const T* w_ = static_cast<const T*>(w);
@@ -238,15 +272,19 @@ int launch(const void* op, const void* w, const void* in, void* out, void* tmp,
 template <typename T, bool X3>
 int dispatch(int mode, int sq, const void* op, const void* w, const void* in,
              void* out, void* tmp, int ex, int ey, int ncol, int nsteps,
-             void* stream) {
+             int pad, int out_pad, void* stream) {
   switch (mode) {
     case BRIDGE_IN:
-      return launch<T, X3, false, BRIDGE_IN>(op, w, in, out, tmp, ex, ey, ncol, nsteps, stream);
+      return launch<T, X3, false, BRIDGE_IN>(op, w, in, out, tmp, ex, ey, ncol, nsteps,
+                                             pad, out_pad, stream);
     case BRIDGE_OUT:
-      return launch<T, X3, false, BRIDGE_OUT>(op, w, in, out, tmp, ex, ey, ncol, nsteps, stream);
+      return launch<T, X3, false, BRIDGE_OUT>(op, w, in, out, tmp, ex, ey, ncol, nsteps,
+                                              pad, out_pad, stream);
     case STEP:
-      return sq ? launch<T, X3, true, STEP>(op, w, in, out, tmp, ex, ey, ncol, nsteps, stream)
-                : launch<T, X3, false, STEP>(op, w, in, out, tmp, ex, ey, ncol, nsteps, stream);
+      return sq ? launch<T, X3, true, STEP>(op, w, in, out, tmp, ex, ey, ncol, nsteps,
+                                            pad, out_pad, stream)
+                : launch<T, X3, false, STEP>(op, w, in, out, tmp, ex, ey, ncol, nsteps,
+                                             pad, out_pad, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -261,19 +299,26 @@ extern "C" {
 // (op = A, in = t).  op (ex*ey,16,16), w (ex*ey,16) (bridge_in reads no w;
 // it may be null), in/out/tmp
 // (ex*ey,16,ncol), contiguous on one device; in never aliases out or tmp.
-// Returns the launch's CUDA error code.
+// pad > 0 (step and bridge_out, pad == nsteps) is the padded mode on ex
+// owned rows: in and tmp ((ex+2*pad)*ey,16,ncol), op and w
+// ((ex+2*pad-2)*ey, ...), out ((ex+2*pad)*ey,16,ncol) with out_pad (needed
+// when nsteps > 1), else (ex*ey,16,ncol).  Returns the launch's CUDA error
+// code.
 int cdk_rowchain_f32(int mode, const void* op, const void* w, const void* in,
                      void* out, void* tmp, int ex, int ey, int ncol,
-                     int nsteps, int x3, int sq, void* stream) {
-  return x3 ? dispatch<float, true>(mode, sq, op, w, in, out, tmp, ex, ey, ncol, nsteps, stream)
-            : dispatch<float, false>(mode, sq, op, w, in, out, tmp, ex, ey, ncol, nsteps, stream);
+                     int nsteps, int pad, int out_pad, int x3, int sq,
+                     void* stream) {
+  return x3 ? dispatch<float, true>(mode, sq, op, w, in, out, tmp, ex, ey, ncol, nsteps,
+                                    pad, out_pad, stream)
+            : dispatch<float, false>(mode, sq, op, w, in, out, tmp, ex, ey, ncol, nsteps,
+                                     pad, out_pad, stream);
 }
 
 int cdk_rowchain_f64(int mode, const void* op, const void* w, const void* in,
                      void* out, void* tmp, int ex, int ey, int ncol,
-                     int nsteps, int sq, void* stream) {
+                     int nsteps, int pad, int out_pad, int sq, void* stream) {
   return dispatch<double, false>(mode, sq, op, w, in, out, tmp, ex, ey, ncol,
-                                 nsteps, stream);
+                                 nsteps, pad, out_pad, stream);
 }
 
 }  // extern "C"

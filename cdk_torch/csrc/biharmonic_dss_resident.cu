@@ -3,7 +3,9 @@
 // assembles over the 1-D element ring, K19 over the 2-D (ex, ey) torus.
 //
 // Replaces cdk_tpu/kernels/biharmonic/pallas_dss_resident.py::
-// _dss_resident_kernel (single-chip caller apply_dss_resident) and
+// _dss_resident_kernel (single-chip caller apply_dss_resident; the
+// window-fed dist callers apply_dss_resident_windowed and
+// apply_dss_resident_windowed_split) and
 // pallas_dss2d_resident.py::_dss2d_resident_kernel (apply_dss2d_resident).
 // The TPU kernels keep a window of centre groups plus halo groups in VMEM,
 // each 8-element group one (128,128) block-diagonal tile, and run the
@@ -15,7 +17,14 @@
 // elements and one tile of columns: thread (x, y) holds the 16 GLL values of
 // window element y, column x, in registers for the whole launch.  On the
 // ring the window is B + 2h consecutive elements (indices wrap mod nelemd,
-// so a small ring may appear in the window more than once).  On the torus
+// so a small ring may appear in the window more than once).  Window-fed
+// (a shard of a decomposed ring) the elements are the shard's owned block
+// with an exchanged strip of `strip` >= h elements on each side, three
+// arrays read in place of one wrapped index, and the operators and inverse
+// mass those of the extended block; an element past the strips loads as
+// zero (it lies more than h from every owned element), and only owned
+// elements are stored.  With the shard's own ends as strips (one shard) the
+// windows, and so the results, are bit for bit those of the ring.  On the torus
 // (e = a*ey + b) it is Bi + 2h element rows of rj elements each: whole rows
 // (rj = ey) where 2h+1 of them fit, as in the TPU kernel, so the j
 // assembly wraps inside the window and only the i assembly consumes halo
@@ -81,16 +90,21 @@ __device__ __forceinline__ void exchange(T v[NPTS], T* side0, T* side3, int x,
 // a0 = bi*center_i - halo_i, each of rj elements b0 + c (mod ey), b0 =
 // bj*center_j - halo_j, where blockIdx.x = bi*nbj + bj.  halo_j = 0 on the
 // torus means whole rows (rj = ey, b0 = 0).
+// strip > 0: the window-fed ring, ey owned elements between strips of
+// `strip` elements (the element index then counts in the extended block).
 struct Window {
-  int ex, ey, halo_i, center_i, rj, halo_j, center_j, nbj;
+  int ex, ey, halo_i, center_i, rj, halo_j, center_j, nbj, strip;
 };
 
 // L, L2 (nelemd,16,16); w (nelemd,16) inverse assembled mass in lane order;
-// q/out (nelemd,16,ncol).  Block (tc, W); the ring's tc is TILE.
+// q/out (nelemd,16,ncol).  Window-fed: L, L2, w (ey+2*strip, ...) of the
+// extended block, hl/hr (strip,16,ncol) and q/out (ey,16,ncol).  Block
+// (tc, W); the ring's tc is TILE.
 template <typename T, bool X3, bool SQ, bool TORUS>
 __global__ void __launch_bounds__(TILE * MAX_WINDOW)
 dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
-                    const T* __restrict__ w, const T* __restrict__ q,
+                    const T* __restrict__ w, const T* __restrict__ hl,
+                    const T* __restrict__ q, const T* __restrict__ hr,
                     T* __restrict__ out, int ncol, int nsteps, Window g) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PLANES = X3 ? 2 : 1;
@@ -111,32 +125,55 @@ dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
     i %= n;
     return i < 0 ? i + n : i;
   };
+  const bool fed = !TORUS && g.strip > 0;
+  const int n_ext = g.ey + 2 * g.strip;
   auto elem = [&](int y) {
     if constexpr (TORUS)
       return wrap(a0 + y / rj, g.ex) * g.ey + wrap(b0 + y % rj, g.ey);
     else
-      return wrap(b0 + y, g.ey);
+      return fed ? b0 + y + g.strip : wrap(b0 + y, g.ey);
   };
+  auto inside = [&](int e) { return !fed || (e >= 0 && e < n_ext); };
   const int tid = threadIdx.y * tc + threadIdx.x;
   for (int i = tid; i < plane_len; i += W * tc) {
-    const size_t src = (size_t)elem(i / (NPTS * NPTS)) * NPTS * NPTS
-                       + i % (NPTS * NPTS);
-    bih::stage<T, X3>(ops, plane_len, i, L[src]);
-    if constexpr (SQ) bih::stage<T, X3>(ops + PLANES * plane_len, plane_len, i, L2[src]);
+    const int ei = elem(i / (NPTS * NPTS));
+    const size_t src = (size_t)ei * NPTS * NPTS + i % (NPTS * NPTS);
+    const bool in = inside(ei);
+    bih::stage<T, X3>(ops, plane_len, i, in ? L[src] : T(0));
+    if constexpr (SQ)
+      bih::stage<T, X3>(ops + PLANES * plane_len, plane_len, i, in ? L2[src] : T(0));
   }
-  for (int i = tid; i < W * NPTS; i += W * tc)
-    ws[i] = w[(size_t)elem(i / NPTS) * NPTS + i % NPTS];
+  for (int i = tid; i < W * NPTS; i += W * tc) {
+    const int ei = elem(i / NPTS);
+    ws[i] = inside(ei) ? w[(size_t)ei * NPTS + i % NPTS] : T(0);
+  }
   __syncthreads();
 
   const int x = threadIdx.x, y = threadIdx.y;
   const int r = TORUS ? y / rj : 0, cj = TORUS ? y % rj : y;
   const int c = blockIdx.y * tc + x;
   const bool live = c < ncol;  // ragged last column tile: zeros, no store
-  const size_t e = elem(y);
+  const int el = elem(y);
+  // the field's source: q, or window-fed the strip or owned block holding
+  // extended element el; se counts in that array
+  const T* src = q;
+  int se = el;
+  if (fed) {
+    if (el < g.strip) {
+      src = hl;
+    } else if (el < g.strip + g.ey) {
+      se = el - g.strip;
+    } else {
+      src = hr;
+      se = el - g.strip - g.ey;
+    }
+  }
+  const bool load = live && inside(el);
+  const size_t e = static_cast<size_t>(fed ? el - g.strip : el);  // in q/out
   T v[NPTS];
 #pragma unroll
   for (int p = 0; p < NPTS; ++p)
-    v[p] = live ? q[(e * NPTS + p) * ncol + c] : T(0);
+    v[p] = load ? src[((size_t)se * NPTS + p) * ncol + c] : T(0);
 
   const T* A = ops + y * NPTS * NPTS;
   const T* A2 = A + PLANES * plane_len;
@@ -178,6 +215,7 @@ dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
     }
   }
 
+  // (window-fed, b0 + cj is the owned index)
   const bool centre_j = cj >= g.halo_j && cj < g.halo_j + g.center_j && b0 + cj < g.ey;
   const bool centre_i = !TORUS || (r >= g.halo_i && r < g.halo_i + g.center_i
                                    && a0 + r < g.ex);
@@ -191,11 +229,15 @@ dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
 // as many whole rows as fit in MAX_WINDOW elements at TILE columns, or in
 // 2*MAX_WINDOW at TILE/2; where 2*nsteps+1 whole rows do not fit, an 8 x 8
 // rectangle (2*MAX_WINDOW elements at TILE/2), so nsteps <= 3 there.
+// Window-fed (strip > 0, the ring only) nelemd counts the owned elements and
+// the windows are the ring's of that size.
 template <typename T, bool X3, bool SQ, bool TORUS>
-int launch(const void* L, const void* L2, const void* w, const void* q,
-           void* out, int nelemd, int ncol, int nsteps, int ey, void* stream) {
+int launch(const void* L, const void* L2, const void* w, const void* hl,
+           const void* q, const void* hr, void* out, int nelemd, int strip,
+           int ncol, int nsteps, int ey, void* stream) {
   const int h = nsteps;
-  if (nsteps < 0 || nelemd < 1 || ncol < 1 || (TORUS && (ey < 1 || nelemd % ey)))
+  if (nsteps < 0 || nelemd < 1 || ncol < 1 || (TORUS && (ey < 1 || nelemd % ey))
+      || strip < 0 || (strip > 0 && (TORUS || h > strip || !hl || !hr)))
     return static_cast<int>(cudaErrorInvalidValue);
   int tc = TILE;
   Window g{};
@@ -203,7 +245,7 @@ int launch(const void* L, const void* L2, const void* w, const void* q,
     if (2 * h + 1 > MAX_WINDOW) return static_cast<int>(cudaErrorInvalidValue);
     const int center = MAX_WINDOW - 2 * h < nelemd ? MAX_WINDOW - 2 * h : nelemd;
     g = Window{1, nelemd, 0, 1, center + 2 * h, h, center,
-               (nelemd + center - 1) / center};
+               (nelemd + center - 1) / center, strip};
   } else {
     const int ex = nelemd / ey;
     int rows = MAX_WINDOW / ey;
@@ -213,13 +255,13 @@ int launch(const void* L, const void* L2, const void* w, const void* q,
     }
     if (rows >= 2 * h + 1) {
       const int ci = rows - 2 * h < ex ? rows - 2 * h : ex;
-      g = Window{ex, ey, h, ci, ey, 0, ey, 1};
+      g = Window{ex, ey, h, ci, ey, 0, ey, 1, 0};
     } else {
       constexpr int SIDE = 8;  // SIDE * SIDE == 2 * MAX_WINDOW
       if (2 * h + 1 > SIDE) return static_cast<int>(cudaErrorInvalidValue);
       const int ci = SIDE - 2 * h < ex ? SIDE - 2 * h : ex;
       const int cj = SIDE - 2 * h < ey ? SIDE - 2 * h : ey;
-      g = Window{ex, ey, h, ci, cj + 2 * h, h, cj, (ey + cj - 1) / cj};
+      g = Window{ex, ey, h, ci, cj + 2 * h, h, cj, (ey + cj - 1) / cj, 0};
     }
   }
   const int nbi = TORUS ? (g.ex + g.center_i - 1) / g.center_i : 1;
@@ -233,20 +275,24 @@ int launch(const void* L, const void* L2, const void* w, const void* q,
   const dim3 grid(nbi * g.nbj, (ncol + tc - 1) / tc);
   kern<<<grid, dim3(tc, W), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(L), static_cast<const T*>(L2),
-      static_cast<const T*>(w), static_cast<const T*>(q), static_cast<T*>(out),
+      static_cast<const T*>(w), static_cast<const T*>(hl),
+      static_cast<const T*>(q), static_cast<const T*>(hr), static_cast<T*>(out),
       ncol, nsteps, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool X3>
-int dispatch(const void* L, const void* L2, const void* w, const void* q,
-             void* out, int nelemd, int ncol, int nsteps, int ey, int sq,
-             void* stream) {
+int dispatch(const void* L, const void* L2, const void* w, const void* hl,
+             const void* q, const void* hr, void* out, int nelemd, int strip,
+             int ncol, int nsteps, int ey, int sq, void* stream) {
   if (ey > 0)
     return sq ? static_cast<int>(cudaErrorInvalidValue)
-              : launch<T, X3, false, true>(L, L2, w, q, out, nelemd, ncol, nsteps, ey, stream);
-  return sq ? launch<T, X3, true, false>(L, L2, w, q, out, nelemd, ncol, nsteps, 0, stream)
-            : launch<T, X3, false, false>(L, L2, w, q, out, nelemd, ncol, nsteps, 0, stream);
+              : launch<T, X3, false, true>(L, L2, w, hl, q, hr, out, nelemd, strip,
+                                           ncol, nsteps, ey, stream);
+  return sq ? launch<T, X3, true, false>(L, L2, w, hl, q, hr, out, nelemd, strip,
+                                         ncol, nsteps, 0, stream)
+            : launch<T, X3, false, false>(L, L2, w, hl, q, hr, out, nelemd, strip,
+                                          ncol, nsteps, 0, stream);
 }
 
 }  // namespace
@@ -262,14 +308,42 @@ extern "C" {
 int cdk_dss_resident_f32(const void* L, const void* L2, const void* w,
                          const void* q, void* out, int nelemd, int ncol,
                          int nsteps, int ey, int x3, int sq, void* stream) {
-  return x3 ? dispatch<float, true>(L, L2, w, q, out, nelemd, ncol, nsteps, ey, sq, stream)
-            : dispatch<float, false>(L, L2, w, q, out, nelemd, ncol, nsteps, ey, sq, stream);
+  return x3 ? dispatch<float, true>(L, L2, w, nullptr, q, nullptr, out, nelemd, 0,
+                                    ncol, nsteps, ey, sq, stream)
+            : dispatch<float, false>(L, L2, w, nullptr, q, nullptr, out, nelemd, 0,
+                                     ncol, nsteps, ey, sq, stream);
 }
 
 int cdk_dss_resident_f64(const void* L, const void* L2, const void* w,
                          const void* q, void* out, int nelemd, int ncol,
                          int nsteps, int ey, int sq, void* stream) {
-  return dispatch<double, false>(L, L2, w, q, out, nelemd, ncol, nsteps, ey, sq, stream);
+  return dispatch<double, false>(L, L2, w, nullptr, q, nullptr, out, nelemd, 0,
+                                 ncol, nsteps, ey, sq, stream);
+}
+
+// The window-fed ring (a shard of a decomposed ring): q/out (e_own,16,ncol)
+// the owned block, hl/hr (strip,16,ncol) the exchanged strips on its left
+// and right, L, L2 (e_own+2*strip,16,16) and w (e_own+2*strip,16) those of
+// the extended block [hl | q | hr]; 1 <= strip, nsteps <= strip and
+// nsteps <= 15.  hl, q and hr may be views into one extended array.
+int cdk_dss_resident_window_f32(const void* L, const void* L2, const void* w,
+                                const void* hl, const void* q, const void* hr,
+                                void* out, int e_own, int strip, int ncol,
+                                int nsteps, int x3, int sq, void* stream) {
+  if (strip < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return x3 ? dispatch<float, true>(L, L2, w, hl, q, hr, out, e_own, strip, ncol,
+                                    nsteps, 0, sq, stream)
+            : dispatch<float, false>(L, L2, w, hl, q, hr, out, e_own, strip, ncol,
+                                     nsteps, 0, sq, stream);
+}
+
+int cdk_dss_resident_window_f64(const void* L, const void* L2, const void* w,
+                                const void* hl, const void* q, const void* hr,
+                                void* out, int e_own, int strip, int ncol,
+                                int nsteps, int sq, void* stream) {
+  if (strip < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<double, false>(L, L2, w, hl, q, hr, out, e_own, strip, ncol,
+                                 nsteps, 0, sq, stream);
 }
 
 }  // extern "C"

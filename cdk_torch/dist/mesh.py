@@ -11,6 +11,13 @@ launch; shards launch one after another on the current stream.  The
 collectives the decomposed steps use, the halo exchange (`lax.ppermute`)
 and the flux sum (`lax.psum`), sit behind `exchange_strips`, `exchange`
 and `psum`, so a multi-process mesh can replace them with collectives.
+
+The DSS families decompose a periodic element ring or torus, whose
+exchange wraps around the whole domain as `lax.ppermute` does:
+`ring_strips` and `ring_exchange` (no zeros at the ends).  `make_mesh2d`
+is the (pi, pj) grid of shards the 2-D torus decomposition runs on; its
+sharded fields lead with both shard axes, and `ring_strips` exchanges
+along either.
 """
 
 from __future__ import annotations
@@ -79,6 +86,64 @@ def exchange(x: torch.Tensor, h: int) -> torch.Tensor:
     """x extended by h neighbour columns on each side: (P, S, chunk + 2h, ·)."""
     left, right = exchange_strips(x, h)
     return torch.cat([left, x, right], dim=2)
+
+
+def ring_strips(x: torch.Tensor, h: int, shard_dim: int = 0, dim: int = 1,
+                out=None):
+    """The h entries each shard receives from its neighbours along shard axis
+    `shard_dim` of a periodic domain, whose axis `dim` the shards split:
+    left[p] = x[p-1 mod P][-h:], right[p] = x[p+1 mod P][:h] on that axis
+    (one shard receives its own ends).  New strips are contiguous; `out`
+    is a (left, right) pair of tensors (or views) of their shapes, refilled
+    in place."""
+    n, P = x.shape[dim], x.shape[shard_dim]
+    if n < h:
+        raise ValueError(f"{n} entries per shard < halo {h}")
+    tail, head = x.narrow(dim, n - h, h), x.narrow(dim, 0, h)
+    if out is None:
+        out = (x.new_empty(tail.shape), x.new_empty(head.shape))
+    left, right = out
+    # left[p] = tail[p-1], right[p] = head[p+1], wrapping over the P shards
+    left.narrow(shard_dim, 1, P - 1).copy_(tail.narrow(shard_dim, 0, P - 1))
+    left.narrow(shard_dim, 0, 1).copy_(tail.narrow(shard_dim, P - 1, 1))
+    right.narrow(shard_dim, 0, P - 1).copy_(head.narrow(shard_dim, 1, P - 1))
+    right.narrow(shard_dim, P - 1, 1).copy_(head.narrow(shard_dim, 0, 1))
+    return left, right
+
+
+def ring_exchange(x: torch.Tensor, h: int, shard_dim: int = 0,
+                  dim: int = 1) -> torch.Tensor:
+    """x extended by h periodic neighbour entries on each side of axis dim."""
+    left, right = ring_strips(x, h, shard_dim, dim)
+    return torch.cat([left, x, right], dim=dim)
+
+
+@dataclass(frozen=True)
+class Mesh2d:
+    """A (pi, pj) grid of logical shards on one device: pi splits element
+    rows (the i direction), pj element columns (j)."""
+
+    shape: tuple[int, int]
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+
+def make_mesh2d(n: int | None = None, shape: tuple[int, int] | None = None,
+                device="cuda") -> Mesh2d:
+    """A 2-D mesh of n shards (1 where neither is given), factorised
+    most-square (8 -> 2 x 4) unless `shape` gives (pi, pj)."""
+    if shape is None:
+        n = n or 1
+        pi = int(n**0.5)
+        while n % pi:
+            pi -= 1
+        shape = (pi, n // pi)
+    if shape[0] < 1 or shape[1] < 1:
+        raise ValueError(f"a mesh needs at least one shard per axis (got {shape})")
+    return Mesh2d(tuple(shape), resolve_device(device))
 
 
 def psum(parts: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ champion loop, and reports us/step and grid points/s.  A leg that crashes
 is reported as a failed leg; it does not stop the others.
 
 The mesh is P logical shards on one card (`dist/mesh.py`).  The two MPDATA
-legs are ported; the DSS and CKE legs wait for `dist/biharmonic.py` and
+legs and the two DSS legs (the kstep-8 ring on K14w, the row-sharded
+rowchain on K15, K18p, K16p and K17p) are ported; the CKE leg waits for
 `dist/cke.py`.
 """
 
@@ -16,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from cdk_torch.core.norms import rel_l1
+from cdk_torch.core.norms import rel_l1, rel_l2
 from cdk_torch.core.timer import slope_time_detail
 
 
@@ -99,11 +100,56 @@ def _leg_mpdata_slices(cfg, m, champ, trials):
     return "slice_batch_loop", lo, med, hi, float(err), 1e-5
 
 
+def _leg_dss(cfg, m, champ, trials):
+    """The communication-avoiding ring: kstep 8, K14w per shard."""
+    from cdk_torch.dist import biharmonic as dist_bi
+    from cdk_torch.kernels.biharmonic import problem
+
+    data = problem.init_data(cfg, m.device).to(m.device)
+    si, loop, gather = dist_bi.make_dist_loop_dss_kstep(cfg, m, kstep=8)
+    q, aux = si(data)
+
+    nv = 8
+    out_d = gather(loop(q, aux, nv))
+    out_r = _champion_loop("biharmonic_dss", champ, cfg, data)(data, nv)
+    err = rel_l2(out_d, out_r)
+    lo, med, hi = _slope_loop(lambda n: loop(q, aux, n), m.device, 16, 80,
+                              trials)
+    # two bf16x3 chains in other orders: the per-step rounding compounds
+    # over nv steps; 5e-4 still catches a structural fault
+    return "dss_kstep8_ring", lo, med, hi, float(err), 5e-4
+
+
+def _leg_dss2d(cfg, m, champ, trials):
+    """The row-sharded rowchain: k-step blocks (K18p), then K16p and K17p."""
+    from cdk_torch.dist import biharmonic as dist_bi
+    from cdk_torch.kernels.biharmonic import problem
+
+    data = problem.init_data(cfg, m.device).to(m.device)
+    si, loop, gather = dist_bi.make_dist_loop_dss2d_rowchain(cfg, m)
+    q, aux = si(data)
+
+    nv = 4
+    out_d = gather(loop(q, aux, nv))
+    out_r = _champion_loop("biharmonic_dss2d", champ, cfg, data)(data, nv)
+    err = rel_l2(out_d, out_r)
+    lo, med, hi = _slope_loop(lambda n: loop(q, aux, n), m.device, 10, 60,
+                              trials)
+    return "dss2d_rowchain_padk", lo, med, hi, float(err), 5e-4
+
+
 # leg name -> (kernel family, leg function)
 LEGS = {
     "mpdata": ("mpdata", _leg_mpdata),
     "mpdata_slices": ("mpdata", _leg_mpdata_slices),
+    "biharmonic_dss": ("biharmonic_dss", _leg_dss),
+    "biharmonic_dss2d": ("biharmonic_dss2d", _leg_dss2d),
 }
+# the DSS legs chain 8 and 4 steps: at f32 the real radius takes the state
+# below f32's range within three applications (each scales it by about
+# rrearth²), so that both sides would compare zeros; their production
+# preset runs at rrearth 0.1, as chip_smoke.py's chains do
+CHAIN_RREARTH = {"biharmonic_dss": 0.1, "biharmonic_dss2d": 0.1}
 
 
 def run_dist_legs(champions: dict, production: bool = True,
@@ -112,9 +158,10 @@ def run_dist_legs(champions: dict, production: bool = True,
     """Run the dist legs on a 1-shard mesh on `device`.
 
     champions: {family: single-chip champion variant} — each leg verifies
-    against its family's champion loop.  configs overrides the per-leg
-    config (and then names the legs to run); without it each family runs
-    its production preset, or its default config at f32 with device init
+    against its family's champion loop; a leg whose family has none is
+    skipped.  configs overrides the per-leg config (and then names the legs
+    to run); without it each family runs its production preset (the DSS
+    legs at CHAIN_RREARTH), or its default config at f32 with device init
     when production is False."""
     from cdk_torch.core.config import production_config, with_overrides
     from cdk_torch.dist import mesh as meshmod
@@ -126,6 +173,8 @@ def run_dist_legs(champions: dict, production: bool = True,
     results = []
     for leg, (family, build) in LEGS.items():
         spec = get_spec(family)
+        if family not in champions:
+            continue
         if configs is not None:
             if leg not in configs:
                 continue
@@ -134,6 +183,8 @@ def run_dist_legs(champions: dict, production: bool = True,
             cfg = (production_config(family) if production
                    else with_overrides(spec.default_config(),
                                        dtype="float32", device_init=True))
+            if production and family in CHAIN_RREARTH:
+                cfg = with_overrides(cfg, rrearth=CHAIN_RREARTH[family])
         try:
             path, lo, med, hi, err, tol = build(cfg, m, champions[family],
                                                 trials)

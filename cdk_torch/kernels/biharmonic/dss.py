@@ -112,6 +112,20 @@ def dss_ring_lane(s_lane: torch.Tensor, w: torch.Tensor,
     return (summed * w.reshape(e, npg, npg, 1)).reshape(e, npts, ncol)
 
 
+def dss_line_lane(s_lane: torch.Tensor, w: torch.Tensor,
+                  npg: int) -> torch.Tensor:
+    """dss_ring_lane with the ring cut open between its last and first
+    element: the two end elements assemble with zeros (a shard's window)."""
+    e, npts, ncol = s_lane.shape
+    s4 = s_lane.reshape(e, npg, npg, ncol)
+    z = torch.zeros_like(s4[:1, :, 0])
+    left = torch.cat([z, s4[:-1, :, -1]])
+    right = torch.cat([s4[1:, :, 0], z])
+    summed = torch.cat([(s4[:, :, 0] + left)[:, :, None], s4[:, :, 1:-1],
+                        (s4[:, :, -1] + right)[:, :, None]], 2)
+    return (summed * w.reshape(e, npg, npg, 1)).reshape(e, npts, ncol)
+
+
 def _fused_dss_forms(cfg, precision):
     rr = rrearth_as(cfg)
     npg = cfg.np_gll

@@ -20,9 +20,18 @@ counter; `rowchain_step.depth_launches` also counts the step's launches by
 depth.  `step` is bridge-in then bridge-out; `loop(data, n)` is bridge-in,
 n-1 t-steps in launches of `loop_depth` steps and one for the remainder,
 then bridge-out.  The TPU's window geometry, VMEM budgets, the ±13/±12-row
-shift masks and the `CDK_DSS2D*`/`CDK_ROWCHAIN_KMAX` hooks are not ported;
-the dist entry points (`step_t_padded`, `bridge_out_padded`,
-`stepk_padded_factory`) wait for the dist port.
+shift masks and the `CDK_DSS2D*`/`CDK_ROWCHAIN_KMAX` hooks are not ported.
+
+The kernels' padded mode runs them on one shard of a row-decomposed torus
+(`dist/biharmonic.py`): ex owned element rows, the t input padded by p rows
+exchanged from each neighbour shard, the i-neighbours the rows beside (no
+wrap).  It replaces the JAX dist entry points `step_t_padded` and
+`bridge_out_padded` (`_padded_call`) and `stepk_padded_factory`:
+`rowchain_step_padded` at depth 1 (K16p) and deeper (K18p: p = depth,
+operators and weights padded by depth - 1 rows, each step one row fewer on
+each side, bit for bit that many K16p launches on shrinking windows) and
+`rowchain_bridge_out_padded` (K17p), each with its counter.  K15 reads no
+neighbour row and runs on a shard's rows as it is.
 """
 
 from __future__ import annotations
@@ -111,10 +120,46 @@ def rowchain_bridge_out_plain(L, w, t, ex, ey, precision="highest"):
     return apply_operator(L, _ipass_w(t, w, ex, ey), _prec(precision))
 
 
+def _ipass_w_padded(tp: torch.Tensor, w: torch.Tensor, ex: int,
+                    ey: int) -> torch.Tensor:
+    """_ipass_w of the ex inner rows of a t padded by one row on each side
+    ((ex+2)*ey elements): the i-neighbours are the rows beside, no wrap."""
+    ncol = tp.shape[2]
+    t6 = tp.reshape(ex + 2, ey, NPG, NPG, ncol)
+    c = t6[1:-1]
+    summed = torch.cat([(c[:, :, :1] + t6[:-2, :, -1:]), c[:, :, 1:-1],
+                        (c[:, :, -1:] + t6[2:, :, :1])], 2)
+    return summed.reshape(ex * ey, NPTS, ncol) * w[..., None]
+
+
+def rowchain_step_padded_plain(F, w, tp, ex, ey, nsteps=1, precision="highest",
+                               squared=False):
+    """nsteps t-steps of a shard's ex owned rows: tp ((ex+2n)*ey, 16, ncol)
+    padded by n = nsteps rows per side, F and w by n - 1; step j computes
+    the rows that stay exact, one fewer per side each step.  -> the owned
+    rows (ex*ey, 16, ncol)."""
+    prec = _prec(precision)
+    t = tp
+    for j in range(nsteps):
+        rows = ex + 2 * (nsteps - 1 - j)  # rows computed by this step
+        Fj, wj = F[j * ey:(j + rows) * ey], w[j * ey:(j + rows) * ey]
+        u = apply_operator(Fj, _ipass_w_padded(t, wj, rows, ey), prec)
+        if not squared:
+            u = apply_operator(Fj, u, prec)
+        t = _jpass(u, rows, ey)
+    return t
+
+
+def rowchain_bridge_out_padded_plain(L, w, tp, ex, ey, precision="highest"):
+    """q = A(ipass(t)·w) on a shard's ex owned rows, tp padded by one row
+    per side."""
+    return apply_operator(L, _ipass_w_padded(tp, w, ex, ey), _prec(precision))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library()
-    head = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    head = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     lib.cdk_rowchain_f32.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.cdk_rowchain_f64.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p]
     lib.cdk_rowchain_f32.restype = ctypes.c_int
@@ -122,7 +167,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(op, w, x, ex, ey, precision):
+def _check(op, w, x, ex, ey, precision, pad=0):
+    """pad > 0: the padded mode, x with pad more rows per side and op/w
+    with pad - 1."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     ts = [op, x] + ([] if w is None else [w])
@@ -133,26 +180,36 @@ def _check(op, w, x, ex, ey, precision):
         raise TypeError("bf16x3 is a float32 form")
     if any(t.device != x.device for t in ts):
         raise ValueError("operator, w and field must lie on one device")
-    e = ex * ey
-    if (x.dim() != 3 or x.shape[:2] != (e, NPTS) or op.shape != (e, NPTS, NPTS)
-            or (w is not None and w.shape != (e, NPTS))):
-        raise ValueError(f"want an ({ex}x{ey}) torus: operator (e,{NPTS},{NPTS}),"
-                         f" w (e,{NPTS}), field (e,{NPTS},ncol) with e={e}; got "
-                         f"{tuple(op.shape)}, {tuple(x.shape)}")
+    e = (ex + 2 * pad) * ey
+    eo = (ex + 2 * pad - 2 if pad else ex) * ey
+    if (x.dim() != 3 or x.shape[:2] != (e, NPTS) or op.shape != (eo, NPTS, NPTS)
+            or (w is not None and w.shape != (eo, NPTS))):
+        where = f" padded by {pad} rows" if pad else ""
+        raise ValueError(f"want an ({ex}x{ey}) torus{where}: operator "
+                         f"({eo},{NPTS},{NPTS}), w ({eo},{NPTS}), field "
+                         f"({e},{NPTS},ncol); got {tuple(op.shape)}, "
+                         f"{tuple(x.shape)}")
 
 
-def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what):
-    """One launch; w is None for bridge-in, which reads no inverse mass."""
-    if not all(t is None or t.is_contiguous() for t in (op, w, x)):
+def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what, pad=0,
+            out=None, tmp=None):
+    """One launch; w is None for bridge-in, which reads no inverse mass.
+    pad > 0 is the padded mode on ex owned rows, x padded by pad rows per
+    side; `out` (allocated where None) then has ex rows or x's shape."""
+    if not all(t is None or t.is_contiguous() for t in (op, w, x, out, tmp)):
         raise ValueError(f"{what} needs contiguous operands")
     ncol = x.shape[2]
-    out = torch.empty_like(x)
-    tmp = torch.empty_like(x) if nsteps > 1 else None
+    if out is None:
+        out = torch.empty((ex * ey, NPTS, ncol), dtype=x.dtype, device=x.device)
+    if tmp is None and nsteps > 1:
+        tmp = torch.empty_like(x)
+    out_pad = int(pad > 0 and out.shape[0] == x.shape[0])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (mode, op.data_ptr(), None if w is None else w.data_ptr(),
                 x.data_ptr(), out.data_ptr(),
-                None if tmp is None else tmp.data_ptr(), ex, ey, ncol, nsteps)
+                None if tmp is None else tmp.data_ptr(), ex, ey, ncol, nsteps,
+                pad, out_pad)
         if x.dtype == torch.float32:
             err = _lib().cdk_rowchain_f32(*args, int(precision == "bf16x3"),
                                           int(squared), stream)
@@ -201,11 +258,70 @@ def rowchain_bridge_out(L, w, t, ex, ey, precision="highest"):
     return out
 
 
+def rowchain_step_padded(F, w, tp, ex, ey, nsteps=1, precision="highest",
+                         squared=False, padded_out=False, out=None, tmp=None):
+    """nsteps chained t-steps of a shard's ex owned rows in one launch (K16p
+    at depth 1, K18p deeper), tp padded by nsteps rows per side, F and w by
+    nsteps - 1 (rowchain_step_padded_plain).  -> the owned rows: as
+    (ex*ey, 16, ncol), or with padded_out (needed for nsteps > 1) at their
+    rows of a tensor shaped like tp whose other rows are scratch (a deeper
+    launch's earlier steps write some of them).  out/tmp: buffers to write
+    into (tp's shape for tmp; the kernel writes every row of them before it
+    reads it).  CUDA tensors launch the kernel (never anything else); CPU
+    tensors run the plain version."""
+    if nsteps < 1:
+        raise ValueError(f"nsteps must be >= 1 (got {nsteps})")
+    _check(F, w, tp, ex, ey, precision, pad=nsteps)
+    if nsteps > 1 and not padded_out:
+        raise ValueError("a deeper padded step writes the padded shape "
+                         "(padded_out=True)")
+    shape = tp.shape if padded_out else (ex * ey, *tp.shape[1:])
+    if out is not None and (out.shape != shape or out.dtype != tp.dtype
+                            or out.device != tp.device):
+        raise ValueError(f"out must be {tuple(shape)} {tp.dtype} on {tp.device}")
+    if tmp is not None and (tmp.shape != tp.shape or tmp.dtype != tp.dtype
+                            or tmp.device != tp.device):
+        raise ValueError("tmp must be shaped like tp")
+    lo = nsteps * ey if padded_out else 0
+    if tp.device.type == "cpu":
+        t = rowchain_step_padded_plain(F, w, tp, ex, ey, nsteps, precision,
+                                       squared)
+        if out is None:
+            if not padded_out:
+                return t
+            out = torch.zeros_like(tp)
+        out[lo:lo + ex * ey] = t
+        return out
+    out = _launch(STEP, F, w, tp, ex, ey, nsteps, precision, squared,
+                  "rowchain_step_padded", pad=nsteps,
+                  out=torch.empty(shape, dtype=tp.dtype, device=tp.device)
+                  if out is None else out, tmp=tmp)
+    rowchain_step_padded.launches += 1
+    rowchain_step_padded.depth_launches[nsteps] = (
+        rowchain_step_padded.depth_launches.get(nsteps, 0) + 1)
+    return out
+
+
+def rowchain_bridge_out_padded(L, w, tp, ex, ey, precision="highest"):
+    """q = A(ipass(t)·w) of a shard's ex owned rows, tp padded by one row
+    per side (K17p)."""
+    _check(L, w, tp, ex, ey, precision, pad=1)
+    if tp.device.type == "cpu":
+        return rowchain_bridge_out_padded_plain(L, w, tp, ex, ey, precision)
+    out = _launch(BRIDGE_OUT, L, w, tp, ex, ey, 1, precision, False,
+                  "rowchain_bridge_out_padded", pad=1)
+    rowchain_bridge_out_padded.launches += 1
+    return out
+
+
 # kernel launches in this process
 rowchain_bridge_in.launches = 0
 rowchain_step.launches = 0
 rowchain_step.depth_launches = {}  # depth -> launches
 rowchain_bridge_out.launches = 0
+rowchain_step_padded.launches = 0
+rowchain_step_padded.depth_launches = {}  # depth -> launches
+rowchain_bridge_out_padded.launches = 0
 
 
 def _rowchain_forms(cfg, precision: str, precomposed: bool = False):

@@ -21,6 +21,14 @@ what the kernel is compared with on the card), and the wrapper
 n)` chains launches of DEPTH steps and one launch for the remainder.  The
 TPU's grouping, window geometry and VMEM budgets (`_pick_geometry`,
 `_pick_k`, `KMAX`, the `CDK_DSS*` hooks, the 128-lane pad) are not ported.
+
+The kernel's window-fed mode (K14w) runs the chain on one shard of a
+decomposed ring (`dist/biharmonic.make_dist_loop_dss_kstep`): the owned
+block between two exchanged strips, stored back owned only.  It replaces
+the dist callers `apply_dss_resident_windowed` and its split form; here
+both are `dss_resident_window`, whose strips and owned block may be three
+arrays (split) or three views into one extended array (padded), the same
+launch either way.  Beside it, `dss_resident_window_plain`.
 """
 
 from __future__ import annotations
@@ -32,7 +40,11 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
-from cdk_torch.kernels.biharmonic.dss import dss_ring_lane, dss_weights
+from cdk_torch.kernels.biharmonic.dss import (
+    dss_line_lane,
+    dss_ring_lane,
+    dss_weights,
+)
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
@@ -80,18 +92,55 @@ def dss_resident_plain(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
     return apply_operator(L, d, prec)
 
 
+def dss_resident_window_plain(L_ext: torch.Tensor, w_ext: torch.Tensor,
+                              hl: torch.Tensor, q_lane: torch.Tensor,
+                              hr: torch.Tensor, nsteps: int,
+                              precision: str = "highest",
+                              L2_ext: torch.Tensor | None = None) -> torch.Tensor:
+    """dss_resident_plain on the extended block [hl | q_lane | hr] cut open
+    (its two end elements assemble with zeros), the owned block returned.
+    L_ext, L2_ext: (e+2h, 16, 16); w_ext: (e+2h, 16); hl, hr: (h, 16,
+    ncol); q_lane: (e, 16, ncol).  Exact on the owned block for nsteps <= h."""
+    prec = "high" if precision == "bf16x3" else "highest"
+    h = hl.shape[0]
+    w3 = w_ext.reshape(-1, NPG, NPG)
+
+    def dss(s):
+        return dss_line_lane(s, w3, NPG)
+
+    q = torch.cat([hl, q_lane, hr])
+    if L2_ext is None:
+        for _ in range(nsteps):
+            q = apply_operator(L_ext, dss(apply_operator(L_ext, q, prec)), prec)
+    elif nsteps > 0:
+        d = dss(apply_operator(L_ext, q, prec))
+        for _ in range(nsteps - 1):
+            d = dss(apply_operator(L2_ext, d, prec))
+        q = apply_operator(L_ext, d, prec)
+    return q[h:h + q_lane.shape[0]]
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library()
     ptrs = [ctypes.c_void_p] * 5
     lib.cdk_dss_resident_f32.argtypes = ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.cdk_dss_resident_f64.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.cdk_dss_resident_f32.restype = ctypes.c_int
-    lib.cdk_dss_resident_f64.restype = ctypes.c_int
+    wptrs = [ctypes.c_void_p] * 7
+    lib.cdk_dss_resident_window_f32.argtypes = (wptrs + [ctypes.c_int] * 6
+                                                + [ctypes.c_void_p])
+    lib.cdk_dss_resident_window_f64.argtypes = (wptrs + [ctypes.c_int] * 5
+                                                + [ctypes.c_void_p])
+    for fn in (lib.cdk_dss_resident_f32, lib.cdk_dss_resident_f64,
+               lib.cdk_dss_resident_window_f32, lib.cdk_dss_resident_window_f64):
+        fn.restype = ctypes.c_int
     return lib
 
 
-def validate(L, w, q_lane, nsteps, precision, L2, max_steps=MAX_STEPS):
+def validate(L, w, q_lane, nsteps, precision, L2, max_steps=MAX_STEPS,
+             n_ops=None):
+    """n_ops: the operators' and weights' element count (q_lane's, unless
+    given)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     if not 0 <= nsteps <= max_steps:
@@ -104,11 +153,11 @@ def validate(L, w, q_lane, nsteps, precision, L2, max_steps=MAX_STEPS):
         raise TypeError("bf16x3 is a float32 form")
     if any(t.device != q_lane.device for t in ops):
         raise ValueError("L, w, L2 and q_lane must lie on one device")
-    e = q_lane.shape[0]
+    e = q_lane.shape[0] if n_ops is None else n_ops
     if (q_lane.dim() != 3 or q_lane.shape[1] != NPTS
             or L.shape != (e, NPTS, NPTS) or w.shape != (e, NPTS)
             or (L2 is not None and L2.shape != L.shape)):
-        raise ValueError(f"want L, L2 (e,{NPTS},{NPTS}), w (e,{NPTS}) and "
+        raise ValueError(f"want L, L2 ({e},{NPTS},{NPTS}), w ({e},{NPTS}) and "
                          f"q_lane (e,{NPTS},ncol); got {tuple(L.shape)}, "
                          f"{tuple(w.shape)}, {tuple(q_lane.shape)}")
 
@@ -149,6 +198,61 @@ def dss_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
 
 
 dss_resident.launches = 0  # kernel launches in this process
+
+
+def dss_resident_window(L_ext: torch.Tensor, w_ext: torch.Tensor,
+                        hl: torch.Tensor, q_lane: torch.Tensor,
+                        hr: torch.Tensor, nsteps: int,
+                        precision: str = "highest",
+                        L2_ext: torch.Tensor | None = None,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """nsteps chained steps on one shard of a decomposed ring, its owned
+    block q_lane (e, 16, ncol) between the strips hl and hr (h >= 1
+    elements each, nsteps <= h); operators and weights are those of the
+    extended block (e+2h, ...).  -> the owned block, written into `out` (an
+    (e, 16, ncol) tensor) where one is given.  CUDA tensors launch the
+    kernel (never anything else); CPU tensors run
+    dss_resident_window_plain."""
+    h, e = hl.shape[0], q_lane.shape[0]
+    validate(L_ext, w_ext, q_lane, nsteps, precision, L2_ext, n_ops=e + 2 * h)
+    if h < 1 or hr.shape != hl.shape or hl.shape[1:] != q_lane.shape[1:]:
+        raise ValueError(f"want strips hl, hr (h,{NPTS},ncol), h >= 1, beside "
+                         f"q_lane (e,{NPTS},ncol); got {tuple(hl.shape)}, "
+                         f"{tuple(hr.shape)}, {tuple(q_lane.shape)}")
+    if nsteps > h:
+        raise ValueError(f"nsteps={nsteps} exceeds the strips' {h} elements")
+    if any(t.dtype != q_lane.dtype or t.device != q_lane.device for t in (hl, hr)):
+        raise ValueError("hl, q_lane and hr must share a dtype and a device")
+    if q_lane.device.type == "cpu":
+        res = dss_resident_window_plain(L_ext, w_ext, hl, q_lane, hr, nsteps,
+                                        precision, L2_ext)
+        return res if out is None else out.copy_(res)
+    sq = L2_ext is not None
+    l2 = L2_ext if sq else L_ext
+    if not all(t.is_contiguous() for t in (L_ext, l2, w_ext, hl, q_lane, hr)):
+        raise ValueError("dss_resident_window needs contiguous operands")
+    if out is None:
+        out = torch.empty_like(q_lane)
+    elif (out.shape != q_lane.shape or out.dtype != q_lane.dtype
+          or out.device != q_lane.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor like q_lane")
+    ncol = q_lane.shape[2]
+    with torch.cuda.device(q_lane.device):
+        stream = torch.cuda.current_stream(q_lane.device).cuda_stream
+        args = (L_ext.data_ptr(), l2.data_ptr(), w_ext.data_ptr(), hl.data_ptr(),
+                q_lane.data_ptr(), hr.data_ptr(), out.data_ptr(), e, h, ncol,
+                nsteps)
+        if q_lane.dtype == torch.float32:
+            err = _lib().cdk_dss_resident_window_f32(
+                *args, int(precision == "bf16x3"), int(sq), stream)
+        else:
+            err = _lib().cdk_dss_resident_window_f64(*args, int(sq), stream)
+    build.check(err, "dss_resident_window")
+    dss_resident_window.launches += 1
+    return out
+
+
+dss_resident_window.launches = 0  # kernel launches in this process
 
 
 def _dss_resident_forms(cfg, precision: str, precomposed: bool = False):

@@ -43,16 +43,27 @@ Phases, each printing its result; the first failure exits non-zero:
               non-experimental biharmonic and mpdata variant; for the DSS
               families also the exact _sq form; for cke also pallas_rows
               and pallas_lanegather)
-  5. dist     the decomposed MPDATA path on a mesh of shards on the card:
-              cdk_torch.harness.distbench.run_dist_legs (both mpdata legs at
-              the production preset on 1 shard, verified against
-              pallas_xmajor), `python -m cdk_torch scaling mpdata --devices
-              1,2,4 --overlap-gain --kstep 4`, and make_dist_step with the
-              "pallas" and "packed" cores and make_dist_loop(kstep=4,
-              split=False) at production f32; the per-step and kstep-4
-              loops timed at production f32 on 1 shard
+              The dist modes of the DSS kernels on the shard windows the
+              decomposed loops hand them: the window-fed K14 (K14w, kstep
+              8) on 1 and 2 (shipped) or 4 (production) ring shards, split
+              and padded operands bitwise equal and on 1 shard bitwise
+              equal to K14; the padded rowchain K16p, K17p and K18p (at the
+              loop's depth, bitwise equal to that many K16p launches) on 1
+              and 2 (shipped) or 3 (production 75 x 72) row shards
+  5. dist     the decomposed MPDATA and DSS paths on a mesh of shards on the
+              card: cdk_torch.harness.distbench.run_dist_legs (both mpdata
+              legs and both DSS legs at the production preset on 1 shard,
+              verified against pallas_xmajor and the DSS champions; the DSS
+              legs at rrearth 0.1), `python -m cdk_torch scaling mpdata` and
+              `scaling biharmonic`, each `--devices 1,2,4 --overlap-gain
+              --kstep 4`, the serial and overlap rowchain loops bitwise
+              equal at production f32 on 3 shards, and make_dist_step with
+              the "pallas" and "packed" cores and make_dist_loop(kstep=4,
+              split=False) at production f32; the MPDATA per-step and
+              kstep-4 loops timed at production f32 on 1 shard
   6. counts   every kernel's launch counter rose during phase 4 (K1-K19)
-              or phase 5 (K2, K20-K25), each counted from zero
+              or phase 5 (K2, K20-K25, K14w, K16p-K18p), each counted from
+              zero
 
 Then the total wall time, one JSON line describing the kernels, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
@@ -747,6 +758,169 @@ def phase_dss_kernels(dev, card):
     return rows
 
 
+def ring_cone_ops(e: int, ncol: int, k: int, prec: str) -> dict:
+    """bound()'s operations for k steps of the d-carry ring chain
+    A·D·(A²·D)^(k-1)·A whose e owned elements come out exact: each step
+    reaches one element further on each side, so application i of the k+1
+    covers e + 2(k-i) elements (the last e) and assembly j e + 2(k-j)."""
+    applies = (k + 1) * e + k * (k + 1)
+    dss = k * e + k * (k - 1)
+    return apply_ops(applies * ncol, prec, 1, dss * RING_DSS / applies)
+
+
+def rowchain_cone_ops(ex: int, ey: int, ncol: int, k: int, prec: str) -> dict:
+    """bound()'s operations for k t-steps (A² once each) of a shard's ex
+    owned rows: step j computes ex + 2(k-1-j) rows."""
+    rows = sum(ex + 2 * (k - 1 - j) for j in range(k))
+    return apply_ops(rows * ey * ncol, prec, 1, I_PASS + J_PASS)
+
+
+def phase_dist_dss_kernels(dev, card):
+    """The window-fed K14 (K14w) and the padded rowchain K16p, K17p, K18p
+    against their plain versions on the shard windows the decomposed DSS
+    loops hand them (the shipped 16 x 72 x 40 at f32 and f64 on 1 and 2
+    shards, the production 5400 x 72 x 10 at f32 on 1 and 4 ring shards, 1
+    and 3 torus row shards), in the forms the loops run (the precomposed A²,
+    exact and bf16x3, at rrearth 0.1): K14w at kstep 8 on an inner shard,
+    split and padded operands bitwise equal, and on 1 shard bitwise equal to
+    K14 on the ring; K18p at the loop's depth, bitwise equal to that many
+    K16p launches on shrinking windows.  Returns the JSON rows (production
+    f32 bf16x3 on 1 shard)."""
+    import torch
+
+    from cdk_torch.core.config import BiharmonicConfig
+    from cdk_torch.dist import biharmonic as dbi
+    from cdk_torch.dist import mesh as dmesh
+    from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
+    from cdk_torch.kernels.biharmonic import dss_resident as dr
+    from cdk_torch.kernels.biharmonic import problem as bp
+    from cdk_torch.kernels.biharmonic.dss2d import torus_shape
+    from cdk_torch.kernels.biharmonic.operator import precompose_operator
+
+    rows = {}
+    gates = {("float64", "highest"): 1e-13, ("float32", "highest"): 1e-6,
+             ("float32", "bf16x3"): 5e-5}
+    t0 = time.perf_counter()
+
+    def check(tag, what, gate, kernel, plain, own=None):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        got = out if own is None else out[own]
+        rel, mae, big = errors(got, ref, "l2")
+        ms, plain_ms = timed_ms(kernel, REPS), timed_ms(plain, REPS)
+        print(f"[3 {tag}] {what}: rel_l2 {rel:.3e} (gate {gate:g}) max_abs "
+              f"{mae:.3e} of {big:.3e} bitwise={torch.equal(got, ref)}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+        if not (rel < gate and big > 0 and bool(torch.isfinite(got).all())):
+            fail(f"{tag} {what}: rel_l2 {rel:.3e}")
+        return out, dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms)
+
+    k = 8  # the dss leg's kstep
+    for label, nelemd, qsize, dtypes, ring_P, torus_P in (
+            ("shipped", 16, 40, ("float32", "float64"), (1, 2), (1, 2)),
+            ("production", 5400, 10, ("float32",), (1, 4), (1, 3))):
+        for dtype in dtypes:
+            cfg = BiharmonicConfig(nelemd=nelemd, qsize=qsize, dtype=dtype,
+                                   device_init=True, rrearth=0.1)
+            data = bp.init_data(cfg, dev)
+            ex, ey = torus_shape(nelemd)
+            for prec in ("highest", "bf16x3"):
+                if (dtype, prec) not in gates:
+                    continue
+                gate = gates[dtype, prec]
+                for P in ring_P:
+                    m = dmesh.make_mesh(P, dev)
+                    q_s, (L_s, w_s) = dbi.make_dist_step_dss(cfg, m)[0](data)
+                    p = min(1, P - 1)  # an inner shard where there is one
+                    L2_s = precompose_operator(L_s.reshape(-1, 16, 16)).reshape(L_s.shape)
+                    Le, L2e, we = (dmesh.ring_exchange(x, k)[p] for x in (L_s, L2_s, w_s))
+                    hl, hr = (s[p] for s in dmesh.ring_strips(q_s, k))
+                    q, e = q_s[p], q_s.shape[1]
+                    qx = dmesh.ring_exchange(q_s, k)[p]
+                    shape = (f"{label:10s} e={nelemd} ncol={cfg.ncol} {dtype} {prec} "
+                             f"P={P} shard {p} kstep {k}")
+                    out, row = check(
+                        "K14w", shape, gate,
+                        lambda: dr.dss_resident_window(Le, we, hl, q, hr, k, prec, L2e),
+                        lambda: dr.dss_resident_window_plain(Le, we, hl, q, hr, k, prec, L2e))
+                    padded = dr.dss_resident_window(Le, we, qx[:k], qx[k:k + e],
+                                                    qx[k + e:], k, prec, L2e)
+                    same = [torch.equal(out, padded)]
+                    if P == 1:
+                        same.append(torch.equal(out, dr.dss_resident(
+                            L_s[0], w_s[0], q, k, prec, L2_s[0])))
+                    torch.cuda.synchronize()
+                    if not all(same):
+                        fail(f"K14w {shape}: split/padded/ring bitwise {same}")
+                    print(f"[3 K14w] {shape}: split bitwise equal to padded"
+                          + (", and to K14 on the ring" if P == 1 else ""))
+                    if (label, prec, P) == ("production", "bf16x3", 1):
+                        rows["K14w"] = dict(row, **bound(
+                            (Le, L2e, we, hl, q, hr, out),
+                            **ring_cone_ops(e, cfg.ncol, k, prec)))
+                    del q_s, L_s, w_s, L2_s, Le, L2e, we, hl, hr, qx, out, padded
+
+                for P in torus_P:
+                    m = dmesh.make_mesh(P, dev)
+                    q_s, (L_s, w_s) = dbi.make_dist_loop_dss2d_rowchain(cfg, m)[0](data)
+                    exl = ex // P
+                    p = min(1, P - 1)
+                    F_s = precompose_operator(L_s.reshape(-1, 16, 16)).reshape(L_s.shape)
+                    t_s = torch.stack([rc.rowchain_bridge_in(L_s[i], q_s[i], exl, ey, prec)
+                                       for i in range(P)])
+                    kk = min(4 if prec == "bf16x3" else 3, exl)  # the loop's depth
+                    shape = (f"{label:10s} {ex}x{ey} ncol={cfg.ncol} {dtype} {prec} "
+                             f"P={P} shard {p}")
+                    tp1 = dbi.ring_rows(t_s, ey, 1)[p]
+                    out, row16 = check(
+                        "K16p", f"{shape} depth 1", gate,
+                        lambda: rc.rowchain_step_padded(F_s[p], w_s[p], tp1, exl, ey, 1,
+                                                        prec, True),
+                        lambda: rc.rowchain_step_padded_plain(F_s[p], w_s[p], tp1, exl,
+                                                              ey, 1, prec, True))
+                    q_out, row17 = check(
+                        "K17p", f"{shape} bridge_out", gate,
+                        lambda: rc.rowchain_bridge_out_padded(L_s[p], w_s[p], tp1, exl,
+                                                              ey, prec),
+                        lambda: rc.rowchain_bridge_out_padded_plain(L_s[p], w_s[p], tp1,
+                                                                    exl, ey, prec))
+                    tpk = dbi.ring_rows(t_s, ey, kk)[p]
+                    Fk = dbi.ring_rows(F_s, ey, kk - 1)[p]
+                    wk = dbi.ring_rows(w_s, ey, kk - 1)[p]
+                    own = slice(kk * ey, (kk + exl) * ey)
+                    deep, row18 = check(
+                        "K18p", f"{shape} depth {kk}", gate,
+                        lambda: rc.rowchain_step_padded(Fk, wk, tpk, exl, ey, kk, prec,
+                                                        True, padded_out=True),
+                        lambda: rc.rowchain_step_padded_plain(Fk, wk, tpk, exl, ey, kk,
+                                                              prec, True), own=own)
+                    one = tpk
+                    for j in range(kk):  # kk K16p launches, one row fewer per side
+                        r = exl + 2 * (kk - 1 - j)
+                        one = rc.rowchain_step_padded(Fk[j * ey:(j + r) * ey],
+                                                      wk[j * ey:(j + r) * ey], one,
+                                                      r, ey, 1, prec, True)
+                    torch.cuda.synchronize()
+                    if not torch.equal(deep[own], one):
+                        fail(f"K18p {shape}: depth {kk} differs from {kk} K16p launches")
+                    print(f"[3 K18p] {shape}: depth {kk} bitwise equal to {kk} K16p "
+                          f"launches on shrinking windows")
+                    if (label, prec, P) == ("production", "bf16x3", 1):
+                        cols = exl * ey * cfg.ncol
+                        rows["K16p"] = dict(row16, **bound(
+                            (F_s[p], w_s[p], tp1, out),
+                            **rowchain_cone_ops(exl, ey, cfg.ncol, 1, prec)))
+                        rows["K17p"] = dict(row17, **bound(
+                            (L_s[p], w_s[p], tp1, q_out), **apply_ops(cols, prec, 1, I_PASS)))
+                        rows["K18p"] = dict(row18, **bound(
+                            (Fk, wk, tpk, deep[own]),
+                            **rowchain_cone_ops(exl, ey, cfg.ncol, kk, prec)))
+                    del q_s, L_s, w_s, F_s, t_s, tp1, tpk, Fk, wk, out, q_out, deep, one
+            del data
+    print(f"[3 K14w/K16p-K18p] {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def phase_masked_kernels(dev, card):
     """K20-K25 against their plain versions on shard windows (the windows
     the dist steps hand them): shipped f32 and f64 on 1 and 4 shards, and
@@ -912,19 +1086,22 @@ def phase_main(dev, card):
 
 
 def phase_dist(dev, card):
-    """The decomposed MPDATA path on a mesh of shards on the card."""
+    """The decomposed MPDATA and DSS paths on a mesh of shards on the card."""
     import torch
 
     from cdk_torch import cli
     from cdk_torch.core.config import production_config
-    from cdk_torch.core.norms import rel_l1
+    from cdk_torch.core.norms import rel_l1, rel_l2
     from cdk_torch.dist import mesh as dmesh
     from cdk_torch.dist import mpdata as dmp
     from cdk_torch.harness.distbench import run_dist_legs
     from cdk_torch.kernels.mpdata import problem as mp
 
     t0 = time.perf_counter()
-    for r in run_dist_legs({"mpdata": "pallas_xmajor"}, device=dev):
+    champions = {"mpdata": "pallas_xmajor",
+                 "biharmonic_dss": "fused_operator_bd8_resident_sq_x3",
+                 "biharmonic_dss2d": "fused_operator_rowchain_sq_x3"}
+    for r in run_dist_legs(champions, device=dev):
         print(f"[5 dist] leg {r.family}: {r.path} "
               f"{'ok' if r.ok else 'FAILED'} {r.seconds_per_call * 1e6:.3f} us/step "
               f"(band {r.slope_min * 1e6:.3f}-{r.slope_max * 1e6:.3f}), "
@@ -933,10 +1110,43 @@ def phase_dist(dev, card):
         if not r.ok:
             fail(f"dist leg {r.family}: err {r.err} {r.note}")
     print(f"[5 dist] legs {time.perf_counter() - t0:.1f} s")
-    rc = cli.main(["scaling", "mpdata", "--devices", "1,2,4", "--overlap-gain",
-                   "--kstep", "4"])
-    if rc != 0:
-        fail(f"scaling mpdata exited {rc}")
+    for family in ("mpdata", "biharmonic"):
+        t1 = time.perf_counter()
+        rc = cli.main(["scaling", family, "--devices", "1,2,4", "--overlap-gain",
+                       "--kstep", "4"])
+        if rc != 0:
+            fail(f"scaling {family} exited {rc}")
+        print(f"[5 dist] scaling {family} {time.perf_counter() - t1:.1f} s")
+
+    # the row-sharded rowchain at production f32 on 3 shards: the serial
+    # loop (a depth-4 K18p block, a K16p step) bitwise equal to the overlap
+    # form (five patched K16p steps), both against the champion
+    import cdk_torch.kernels  # noqa: F401  (registers the variants)
+    from cdk_torch.core import registry
+    from cdk_torch.core.config import with_overrides
+    from cdk_torch.dist import biharmonic as dbi
+    from cdk_torch.harness.distbench import CHAIN_RREARTH
+    from cdk_torch.kernels.biharmonic import problem as bp
+
+    bcfg = with_overrides(production_config("biharmonic_dss2d"),
+                          rrearth=CHAIN_RREARTH["biharmonic_dss2d"])
+    bdata = bp.init_data(bcfg, dev)
+    m3 = dmesh.make_mesh(3, dev)
+    si, serial, bgather = dbi.make_dist_loop_dss2d_rowchain(bcfg, m3)
+    overlap = dbi.make_dist_loop_dss2d_rowchain(bcfg, m3, overlap=True)[1]
+    bq, baux = si(bdata)
+    a, b = serial(bq, baux, 6), overlap(bq, baux, 6)
+    champ = registry.get("biharmonic_dss2d", champions["biharmonic_dss2d"]).fn(
+        bcfg)["loop"](bdata, 6)
+    torch.cuda.synchronize()
+    err = rel_l2(bgather(a), champ)
+    if not (torch.equal(a, b) and err < 5e-4 and bool(torch.isfinite(a).all())):
+        fail(f"rowchain on 3 shards: serial vs overlap {torch.equal(a, b)}, "
+             f"rel_l2 {err:.3e} against the champion")
+    print(f"[5 dist] production f32 rowchain on 3 shards, 6 steps: serial bitwise "
+          f"equal to overlap; rel_l2 {err:.3e} against {champions['biharmonic_dss2d']} "
+          f"(gate 5e-4)")
+    del bdata, bq, baux, a, b, champ
 
     cfg = production_config("mpdata")
     m = dmesh.make_mesh(1, dev)
@@ -981,10 +1191,14 @@ def main() -> int:
     rows.update(phase_cke_kernels(dev, card))
     rows.update(phase_dss_kernels(dev, card))
     rows.update(phase_masked_kernels(dev, card))
+    rows.update(phase_dist_dss_kernels(dev, card))
 
     from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
     from cdk_torch.kernels.biharmonic.dss2d_resident import dss2d_resident
-    from cdk_torch.kernels.biharmonic.dss_resident import dss_resident
+    from cdk_torch.kernels.biharmonic.dss_resident import (
+        dss_resident,
+        dss_resident_window,
+    )
     from cdk_torch.kernels.biharmonic.fused import fused_laplace
     from cdk_torch.kernels.biharmonic.resident import (
         apply_operator_pallas,
@@ -1028,11 +1242,22 @@ def main() -> int:
                      "K22": masked.masked_step_xmajor,
                      "K23": masked.masked_step_xmajor_split,
                      "K24": masked.masked_kloop_xmajor,
-                     "K25": masked.masked_kloop_xmajor_split}
+                     "K25": masked.masked_kloop_xmajor_split,
+                     "K14w": dss_resident_window,
+                     "K17p": rc.rowchain_bridge_out_padded}
     for w in dist_wrappers.values():
         w.launches = 0
+    rc.rowchain_step_padded.launches = 0
+    rc.rowchain_step_padded.depth_launches = {}
     phase_dist(dev, card)
     dist_launches = {k: w.launches for k, w in dist_wrappers.items()}
+    # K16p is the padded step at depth 1, K18p the same kernel deeper
+    depths = rc.rowchain_step_padded.depth_launches
+    dist_launches["K16p"] = depths.get(1, 0)
+    dist_launches["K18p"] = sum(n for k, n in depths.items() if k > 1)
+    if dist_launches["K16p"] + dist_launches["K18p"] != rc.rowchain_step_padded.launches:
+        fail(f"padded step launches {rc.rowchain_step_padded.launches} != by "
+             f"depth {depths}")
     print(f"[6 counts] kernel launches during the main path: {launches}; "
           f"during the dist path: {dist_launches}")
     for k, n in list(launches.items()) + list(dist_launches.items()):
@@ -1086,6 +1311,18 @@ def main() -> int:
     meta["K19"] = dict(name="biharmonic_dss2d_resident",
                        source="cdk_torch/csrc/biharmonic_dss_resident.cu",
                        replaces=f"{tpu_rowchain}:66")
+    # the dist modes: K14 fed a window by the ring exchange (both the padded
+    # and the split JAX call), and the rowchain on exchanged-row padding
+    meta["K14w"] = dict(name="biharmonic_dss_resident_window",
+                        source="cdk_torch/csrc/biharmonic_dss_resident.cu",
+                        replaces="cdk_tpu/kernels/biharmonic/pallas_dss_resident.py:505"
+                                 " and :570")
+    for k, name, line in (("K16p", "rowchain_step_padded", "635 (step_t_padded :644)"),
+                          ("K17p", "rowchain_bridge_out_padded",
+                           "635 (bridge_out_padded :648)"),
+                          ("K18p", "rowchain_step_padded_depth_k",
+                           "802 (stepk_padded_factory)")):
+        meta[k] = dict(name=name, source=rowchain, replaces=f"{tpu_rowchain}:{line}")
     for k, name, line in (("K20", "mpdata_masked_step", 44),
                           ("K21", "mpdata_masked_step_packed", 181),
                           ("K22", "mpdata_masked_step_xmajor", 292),
@@ -1097,9 +1334,9 @@ def main() -> int:
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
                     replaces=meta[k]["replaces"], launches=launches[k],
                     **{"library_ms": None, **rows[k]})
-               for k in sorted(meta, key=lambda k: int(k[1:]))]
-    if len(kernels) != 25:
-        fail(f"{len(kernels)} kernels described, want all 25")
+               for k in sorted(meta, key=lambda k: (int(k[1:].rstrip("pw")), k))]
+    if len(kernels) != 29:
+        fail(f"{len(kernels)} kernels described, want all 29")
     print(f"[7 wall] {time.perf_counter() - t0:.1f} s, build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

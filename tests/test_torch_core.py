@@ -174,6 +174,7 @@ def test_verify_gates_match_jax(dtype):
 def test_port_imports_no_jax():
     code = ("import cdk_torch, cdk_torch.cli, cdk_torch.kernels, "
             "cdk_torch.harness.driver, cdk_torch.dist.mpdata, "
+            "cdk_torch.dist.biharmonic, "
             "cdk_torch.harness.distbench, cdk_torch.harness.scaling, sys; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'cdk_tpu'))]; assert not bad, bad")

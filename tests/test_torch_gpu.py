@@ -2,9 +2,10 @@
 its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
 K12, K13 at ragged shapes, K14, K19 and the rowchain kernels K15-K18 on
 small and odd rings and tori, K4, K5, the staged MPDATA kernel behind K6,
-K7 and K8, K9 and K10, the masked-global MPDATA kernel behind K20-K25), the
-shared-memory refusals, and the driver's and the dist forms' paths through
-the kernels.  They skip without a CUDA card.
+K7 and K8, K9 and K10, the masked-global MPDATA kernel behind K20-K25, the
+window-fed K14 and the padded rowchain modes K16p-K18p of the decomposed
+DSS families), the shared-memory refusals, and the driver's and the dist
+forms' paths through the kernels.  They skip without a CUDA card.
 
 This file imports no jax, so it runs where the card is (no JAX there):
 
@@ -29,6 +30,7 @@ from cdk_torch.kernels.biharmonic import dss2d_resident as dres2
 from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
 from cdk_torch.kernels.biharmonic import dss_resident as dres
 from cdk_torch.kernels.biharmonic import fused as bfused
+from cdk_torch.kernels.biharmonic import problem as bproblem
 from cdk_torch.kernels.biharmonic import resident as bres
 from cdk_torch.kernels.biharmonic.operator import precompose_operator
 from cdk_torch.kernels.cke import lanegather as klg
@@ -37,6 +39,7 @@ from cdk_torch.kernels.cke import problem as cp
 from cdk_torch.kernels.cke import rows as krows
 from cdk_torch.kernels.cke import staged as kst
 from cdk_torch.kernels.cke.reference import coef3_of, fsign1
+from cdk_torch.dist import biharmonic as dbi
 from cdk_torch.dist import mesh as dmesh
 from cdk_torch.dist import mpdata as dmp
 from cdk_torch.kernels.mpdata import lanes as mlanes
@@ -537,3 +540,174 @@ def test_dist_forms_run_through_the_masked_kernels(cuda):
     for name, (f, flux) in runs["cuda"].items():
         f_c, flux_c = runs["cpu"][name]
         assert rel_l1(f, f_c) < 1e-13 and rel_l1(flux, flux_c) < 1e-13, name
+
+
+def _ring_ext(x, h):
+    """A one-shard ring's extended block: its own ends as strips."""
+    return torch.cat([x[-h:], x, x[:h]])
+
+
+@pytest.mark.parametrize("e,h,ncol", [(5, 2, 8), (16, 4, 40), (40, 8, 33),
+                                      (20, 15, 8)])
+def test_dss_resident_window_kernel_matches_plain(cuda, e, h, ncol):
+    """K14w, all four forms, against its plain version on a shard of e
+    elements between random strips of h (a window past the strips, several
+    windows, a ragged column tile), 1 to h steps; the split and the padded
+    operands (three arrays, three views of one) bitwise equal."""
+    L64, w64, q64 = _dss_operands(e + 2 * h, ncol, e * 10 + h)
+    for dtype, prec, gate in DSS_FORMS:
+        L, w, qx = (x.to(cuda, dtype) for x in (L64, w64, q64))
+        hl, q, hr = qx[:h].clone(), qx[h:h + e].clone(), qx[h + e:].clone()
+        for L2 in (None, precompose_operator(L)):
+            for n in sorted({1, 2, h}):
+                before = dres.dss_resident_window.launches
+                out = dres.dss_resident_window(L, w, hl, q, hr, n, prec, L2)
+                padded = dres.dss_resident_window(L, w, qx[:h], qx[h:h + e],
+                                                  qx[h + e:], n, prec, L2)
+                torch.cuda.synchronize()
+                assert dres.dss_resident_window.launches == before + 2
+                assert torch.equal(out, padded), (dtype, prec, n)
+                ref = dres.dss_resident_window_plain(L, w, hl, q, hr, n, prec, L2)
+                assert rel_l2(out, ref) < gate, (dtype, prec, L2 is None, n)
+
+
+@pytest.mark.parametrize("e", [16, 41])
+def test_dss_resident_window_at_one_shard_equals_the_ring(cuda, e):
+    """With its own ends as strips a one-shard K14w is bit for bit K14 on
+    the ring, every form and depth."""
+    L64, w64, q64 = _dss_operands(e, 24, e)
+    for dtype, prec, _ in DSS_FORMS:
+        L, w, q = (x.to(cuda, dtype) for x in (L64, w64, q64))
+        for L2 in (None, precompose_operator(L)):
+            for n in (1, 4, 8):
+                ring = dres.dss_resident(L, w, q, n, prec, L2)
+                fed = dres.dss_resident_window(
+                    _ring_ext(L, n), _ring_ext(w, n), q[-n:], q, q[:n], n, prec,
+                    None if L2 is None else _ring_ext(L2, n))
+                torch.cuda.synchronize()
+                assert torch.equal(ring, fed), (dtype, prec, L2 is None, n)
+
+
+def _pad_rows(x, ex, ey, p):
+    """A one-shard torus's rows padded by p wrapped rows per side."""
+    x5 = x.reshape(ex, ey, *x.shape[1:])
+    return torch.cat([x5[ex - p:], x5, x5[:p]]).reshape(-1, *x.shape[1:])
+
+
+@pytest.mark.parametrize("exy,ncol", [((4, 4), 40), ((6, 3), 8), ((8, 10), 33),
+                                      ((5, 9), 40)])
+def test_rowchain_padded_kernels_match_plain(cuda, exy, ncol):
+    """K16p, K17p and K18p (depths 2-4) against their plain versions on a
+    shard of ex rows padded by random rows, and each K18p bitwise equal to
+    that many K16p launches on shrinking windows."""
+    ex, ey = exy
+    kmax = 4
+    L64, w64, t64 = _dss_operands((ex + 2 * kmax) * ey, ncol, ex * 100 + ey)
+    for dtype, prec, gate in DSS_FORMS:
+        L, w, tx = (x.to(cuda, dtype) for x in (L64, w64, t64))
+        for sq in (False, True):
+            F = precompose_operator(L) if sq else L
+            for k in range(1, kmax + 1):
+                r = (kmax - k) * ey  # the k-padded block inside the kmax one
+                tp = tx[r:len(tx) - r]
+                Fp, wp = F[r + ey:len(F) - r - ey], w[r + ey:len(w) - r - ey]
+                before = rc.rowchain_step_padded.launches
+                out = rc.rowchain_step_padded(Fp, wp, tp, ex, ey, k, prec, sq,
+                                              padded_out=k > 1)
+                torch.cuda.synchronize()
+                assert rc.rowchain_step_padded.launches == before + 1
+                own = out[k * ey:(k + ex) * ey] if k > 1 else out
+                ref = rc.rowchain_step_padded_plain(Fp, wp, tp, ex, ey, k, prec, sq)
+                assert rel_l2(own, ref) < gate, (dtype, prec, sq, k)
+                one = tp
+                for j in range(k):  # k K16p launches, one row fewer per side
+                    rows = ex + 2 * (k - 1 - j)
+                    one = rc.rowchain_step_padded(Fp[j * ey:(j + rows) * ey],
+                                                  wp[j * ey:(j + rows) * ey],
+                                                  one, rows, ey, 1, prec, sq)
+                assert torch.equal(own, one), (dtype, prec, sq, k)
+        Lc = L[kmax * ey:(kmax + ex) * ey]
+        wc = w[kmax * ey:(kmax + ex) * ey]
+        tp = tx[(kmax - 1) * ey:len(tx) - (kmax - 1) * ey]
+        before = rc.rowchain_bridge_out_padded.launches
+        q = rc.rowchain_bridge_out_padded(Lc, wc, tp, ex, ey, prec)
+        torch.cuda.synchronize()
+        assert rc.rowchain_bridge_out_padded.launches == before + 1
+        ref = rc.rowchain_bridge_out_padded_plain(Lc, wc, tp, ex, ey, prec)
+        assert rel_l2(q, ref) < gate, (dtype, prec)
+
+
+@pytest.mark.parametrize("exy", [(4, 4), (9, 5)])
+def test_rowchain_padded_at_one_shard_equals_the_torus(cuda, exy):
+    """With the torus's own wrapped rows as the pad, K16p/K18p and K17p are
+    bit for bit K16/K18 and K17."""
+    ex, ey = exy
+    L64, w64, t64 = _dss_operands(ex * ey, 24, ex + ey)
+    for dtype, prec, _ in DSS_FORMS:
+        L, w, t = (x.to(cuda, dtype) for x in (L64, w64, t64))
+        F = precompose_operator(L)
+        for k in (1, 2, 4):
+            mod = rc.rowchain_step(F, w, t, ex, ey, k, prec, True)
+            pad = rc.rowchain_step_padded(_pad_rows(F, ex, ey, k - 1),
+                                          _pad_rows(w, ex, ey, k - 1),
+                                          _pad_rows(t, ex, ey, k), ex, ey, k,
+                                          prec, True, padded_out=True)
+            torch.cuda.synchronize()
+            assert torch.equal(mod, pad[k * ey:(k + ex) * ey]), (dtype, prec, k)
+        assert torch.equal(rc.rowchain_bridge_out(L, w, t, ex, ey, prec),
+                           rc.rowchain_bridge_out_padded(
+                               L, w, _pad_rows(t, ex, ey, 1), ex, ey, prec))
+
+
+def test_rowchain_padded_carry_reads_no_unwritten_row(cuda):
+    """The padded carry: a K18p launch whose output and scratch buffers
+    start as NaN (the rows a padded carry has not refreshed) reads none of
+    them before writing it, so the owned rows come out finite and bit for
+    bit those of fresh buffers."""
+    ex, ey, k = 5, 4, 4
+    L64, w64, t64 = _dss_operands((ex + 2 * k) * ey, 40, 7)
+    for dtype, prec, _ in DSS_FORMS:
+        L, w, tp = (x.to(cuda, dtype) for x in (L64, w64, t64))
+        F, wp = L[ey:len(L) - ey], w[ey:len(w) - ey]
+        want = rc.rowchain_step_padded(F, wp, tp, ex, ey, k, prec, False,
+                                       padded_out=True)
+        out, tmp = torch.full_like(tp, float("nan")), torch.full_like(tp, float("nan"))
+        got = rc.rowchain_step_padded(F, wp, tp, ex, ey, k, prec, False,
+                                      padded_out=True, out=out, tmp=tmp)
+        torch.cuda.synchronize()
+        own = slice(k * ey, (k + ex) * ey)
+        assert got is out and torch.isfinite(got[own]).all()
+        assert torch.equal(got[own], want[own])
+
+
+def test_dist_biharmonic_runs_through_the_kernels(cuda):
+    """The kstep ring (split and padded), the serial rowchain (k-step blocks
+    and one-row steps), its overlap form and the kstep rowchain on 2 shards
+    on the card equal the same loops on the CPU (the plain versions) at
+    f64, and launched K14w, K15, K16p, K17p and K18p."""
+    cfg = with_overrides(BiharmonicConfig(), nelemd=40, nlev=4, qsize=2)
+    host = bproblem.init_data(cfg)
+    wrappers = (dres.dss_resident_window, rc.rowchain_bridge_in,
+                rc.rowchain_bridge_out_padded)
+    before = [w.launches for w in wrappers]
+    depths = dict(rc.rowchain_step_padded.depth_launches)
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        m = dmesh.make_mesh(2, dev)
+        out = {}
+        for split in (True, False):
+            si, loop, gather = dbi.make_dist_loop_dss_kstep(cfg, m, kstep=4,
+                                                            split=split)
+            out[f"kstep split={split}"] = gather(loop(*si(host), 8))
+        for name, (si, loop, gather) in (
+                ("rowchain", dbi.make_dist_loop_dss2d_rowchain(cfg, m)),
+                ("overlap", dbi.make_dist_loop_dss2d_rowchain(cfg, m, overlap=True)),
+                ("rowchain kstep", dbi.make_dist_loop_dss2d_rowchain_kstep(cfg, m, 2))):
+            out[name] = gather(loop(*si(host), 6))
+        runs[dev.type] = out
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    now = rc.rowchain_step_padded.depth_launches
+    assert all(now.get(k, 0) > depths.get(k, 0) for k in (1, 3)), now
+    for name, got in runs["cuda"].items():
+        assert rel_l2(got, runs["cpu"][name]) < 1e-13, name
+    assert torch.equal(runs["cuda"]["rowchain"], runs["cuda"]["overlap"])
