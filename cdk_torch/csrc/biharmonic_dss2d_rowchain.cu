@@ -31,27 +31,47 @@
 // some) or as ex rows.  A row of out or tmp is read only after a step of
 // the launch wrote it.  j stays mod ey in the row.
 //
-// Design: one thread per (element, column).  A production element row is
-// 72 x 16 = 1152 values per column, so rows for a useful column tile (and
-// the k halo rows per side the TPU's temporal blocking keeps) do not fit
-// in 227 KB of shared memory.  Instead each thread RECOMPUTES the four
-// boundary values it needs from each j-neighbour (the neighbour's ipass and
-// F, and only the four output rows of the last application), which needs no
-// exchange between threads and no barrier: the step reads the t rows of
-// (a,b), (a,b+-1) and their i-neighbours' boundary rows (L1/L2 hits within
-// a block of 8 elements of one row) and writes t'.  The operators of the
-// block's elements and their two neighbours, split once per block into bf16
-// hi/lo planes for bf16x3, and the inverse mass sit in shared memory and are
-// read as warp-wide broadcasts.  Depth k (K18): k chained steps in one
-// persistent cooperative launch, the grid synchronised between steps and t
-// ping-ponged between `out` and a scratch buffer; each step is the same
-// arithmetic as a depth-1 launch, so the result equals k depth-1 launches
-// bit for bit.  On this card the depth saves launches, not device-memory
-// round trips.
+// The step (step_kernel; K16, K18, K16p, K18p): a tile is ELEMS elements of
+// one element row and TILE columns, plus one halo element on each side;
+// warp y of the block (SLOTS = ELEMS + 2 warps) takes element b0 - 1 + y mod
+// ey.  Each warp computes its own element's ipass(t).w and F in full,
+// reading t once, writes its j = 0 and j = np-1 output points to shared
+// memory and, after one barrier, the owned warps add their neighbours'
+// points and store t'.  A production row of 72 is three tiles at f32
+// (ELEMS 24: F on 26 elements for 24 owned, 1.08x); f64 takes 8.  The small
+// tori of the tests (ey < ELEMS + 2) put one element in a tile more than
+// once; each copy computes the same values and only the owned one is
+// stored.  The blocks are persistent, one per SM (26 warps at <= 72
+// registers), and each warp copies what it needs of its next tile (its t
+// rows, the two i-neighbours' boundary rows, its operator and inverse mass)
+// into its own part of shared memory with cp.async while it computes this
+// one; the side buffers are double-buffered, so a tile takes one barrier.
+// The bf16x3 forms run F on the tensor cores (bih::tc: the warp's 32
+// columns as two m-tiles, the operator's hi/lo B fragments in registers, t
+// read in fragment order).  The exact and f64 forms keep one thread per
+// column and the FMA chain in its order (bit for bit the plain version),
+// the operator read from the warp's copy as 16-byte broadcasts.  Depth k
+// (K18): k chained steps in one cooperative launch, the grid synchronised
+// between steps and t ping-ponged between `out` and a scratch buffer; each
+// step is the same arithmetic as a depth-1 launch, so the result equals k
+// depth-1 launches bit for bit.
 //
-// Bound: at production the step streams t in and t' out (2 x 249 MB at f32)
-// and issues 512 + 2 x 320 FMAs per column per element (A.A form; 256 +
-// 2 x 64 with A^2; x3 three times as many).
+// The bridges (bridge_kernel; K15, K17, K17p) keep one thread per (element,
+// column) in tiles of BRIDGE_ELEMS elements: bridge_out has no j exchange,
+// and bridge_in RECOMPUTES the four boundary values it needs from each
+// j-neighbour (rows of A q), which needs no exchange and no barrier.
+//
+// Bound: at production the step streams t in and t' out (2 x 249 MB at
+// f32, 0.149 ms at 3.35 TB/s); its operations, 256 FMAs per column per
+// element with A^2 (512 with A.A; bf16x3: three tensor-core products each,
+// plus ~80 f32 operations per application for the splits and sums), take
+// less.  Every step makes one pass through device memory, so depth k saves
+// launches, not passes: a depth-4 launch cannot go under ~0.6 ms without
+// blocking steps in time (not done: a row is 4.6 KB per column, and k halo
+// rows per side of a useful tile do not fit in 227 KB).  What holds a tile
+// back now: one block per SM, so its barrier and the end of its copies
+// stall the whole SM, and the i-neighbours' rows add half again to the
+// bytes each tile reads (from L2).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -62,10 +82,7 @@ namespace {
 
 using bih::NP;
 using bih::NPTS;
-constexpr int TILE = 32;   // columns per block (one warp)
-constexpr int ELEMS = 8;   // elements of one element row per block
-constexpr int SLOTS = ELEMS + 2;
-constexpr int THREADS = TILE * ELEMS;
+constexpr int TILE = 32;  // columns per block (one warp)
 
 enum Mode { BRIDGE_IN = 0, STEP = 1, BRIDGE_OUT = 2 };
 
@@ -74,15 +91,19 @@ struct Torus {
   int ex, ey, ncol, pad, out_pad;
 };
 
-// the j = 0 points (p = 0, 4, 8, 12) and the j = np-1 points (3, 7, 11, 15)
-template <typename T, bool X3>
-__device__ __forceinline__ void rows_j0(const T* op, int lo_off, const T v[NPTS], T o[NP]) {
-  bih::op_rows<T, X3, 0, NP, NP>(op, lo_off, v, o);
+__device__ __forceinline__ int wrap(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
 }
 
-template <typename T, bool X3>
-__device__ __forceinline__ void rows_j3(const T* op, int lo_off, const T v[NPTS], T o[NP]) {
-  bih::op_rows<T, X3, NP - 1, NP, NP>(op, lo_off, v, o);
+// the row above and below t's row a (padded: the rows beside, no wrap)
+__device__ __forceinline__ void ineighbours(int a, const Torus& g, int& au, int& ad) {
+  au = a - 1;
+  ad = a + 1;
+  if (g.pad == 0) {
+    if (a == 0) au = g.ex - 1;
+    if (a == g.ex - 1) ad = 0;
+  }
 }
 
 template <typename T>
@@ -98,11 +119,8 @@ __device__ __forceinline__ void load(const T* f, size_t e, int ncol,
 template <typename T>
 __device__ __forceinline__ void ipass_w(const T* t, const T* wslot,
                                         int a, int b, int c, Torus g, T d[NPTS]) {
-  int au = a - 1, ad = a + 1;
-  if (g.pad == 0) {
-    if (a == 0) au = g.ex - 1;
-    if (a == g.ex - 1) ad = 0;
-  }
+  int au, ad;
+  ineighbours(a, g, au, ad);
   const size_t e = (size_t)a * g.ey + b;
   const size_t eu = (size_t)au * g.ey + b;
   const size_t ed = (size_t)ad * g.ey + b;
@@ -116,43 +134,60 @@ __device__ __forceinline__ void ipass_w(const T* t, const T* wslot,
   for (int p = 0; p < NPTS; ++p) d[p] *= wslot[p];
 }
 
-// One output element (a,b), column c, of the chosen mode: a is its row in
-// src, ad in dst.  ops: SLOTS operators (slot s = element (a, b0-1+s mod
-// ey)), lo plane at +lo_off; ws: SLOTS inverse masses; sl/sc/sr: the
-// left/own/right slots.
-template <typename T, bool X3, bool SQ, int MODE>
+// The rows step s of an nsteps launch computes (all ex, or padded r0 ..
+// r0+rows-1), where it reads and writes, and the operators' and dst's row
+// offsets (the operators' row is one less in the padded mode, and dst's p
+// less where dst is an unpadded out).
+template <typename T>
+struct Pass {
+  const T* src;
+  T* dst;
+  int rows, r0, op_off, dst_off;
+};
+
+template <typename T>
+__device__ __forceinline__ Pass<T> pass_of(int s, int nsteps, const T* in, T* out,
+                                           T* tmp, const Torus& g) {
+  // step s writes `out` when nsteps-1-s is even, else tmp; it reads what
+  // step s-1 wrote (the input for s = 0)
+  Pass<T> p;
+  p.dst = (nsteps - 1 - s) % 2 == 0 ? out : tmp;
+  p.src = s == 0 ? in : (p.dst == out ? tmp : out);
+  p.rows = g.pad ? g.ex + 2 * (g.pad - 1 - s) : g.ex;
+  p.r0 = g.pad ? s + 1 : 0;
+  p.op_off = g.pad ? 1 : 0;
+  p.dst_off = (p.dst == out && !g.out_pad) ? g.pad : 0;
+  return p;
+}
+
+// ---- the bridges: one thread per (element, column) -----------------------
+
+constexpr int BRIDGE_ELEMS = 8;  // elements of one element row per block
+constexpr int BRIDGE_SLOTS = BRIDGE_ELEMS + 2;
+
+// One output element (a,b), column c: a is its row in src, ad in dst.  ops:
+// BRIDGE_SLOTS operators (slot s = element (a, b0-1+s mod ey)), lo plane at
+// +lo_off; ws: their inverse masses; sl/sc/sr: the left/own/right slots.
+template <typename T, bool X3, int MODE>
 __device__ __forceinline__ void item(const T* ops, int lo_off, const T* ws,
                                      const T* src, T* dst, int a, int ad,
                                      int b, int c, int sl, int sc, int sr,
                                      Torus g) {
-  const int bl = b == 0 ? g.ey - 1 : b - 1;
-  const int br = b == g.ey - 1 ? 0 : b + 1;
-  const T* opl = ops + sl * NPTS * NPTS;
   const T* opc = ops + sc * NPTS * NPTS;
-  const T* opr = ops + sr * NPTS * NPTS;
-  T u[NPTS], x[NPTS], ul[NP], ur[NP];
+  T u[NPTS];
   if constexpr (MODE == BRIDGE_OUT) {
     ipass_w(src, ws + sc * NPTS, a, b, c, g, u);
     bih::apply<T, X3>(opc, lo_off, u);
   } else {
-    if constexpr (MODE == BRIDGE_IN) {
-      load(src, (size_t)a * g.ey + b, g.ncol, c, u);
-      bih::apply<T, X3>(opc, lo_off, u);
-      load(src, (size_t)a * g.ey + bl, g.ncol, c, x);
-      rows_j3<T, X3>(opl, lo_off, x, ul);
-      load(src, (size_t)a * g.ey + br, g.ncol, c, x);
-      rows_j0<T, X3>(opr, lo_off, x, ur);
-    } else {
-      ipass_w(src, ws + sc * NPTS, a, b, c, g, u);
-      if constexpr (!SQ) bih::apply<T, X3>(opc, lo_off, u);
-      bih::apply<T, X3>(opc, lo_off, u);
-      ipass_w(src, ws + sl * NPTS, a, bl, c, g, x);
-      if constexpr (!SQ) bih::apply<T, X3>(opl, lo_off, x);
-      rows_j3<T, X3>(opl, lo_off, x, ul);
-      ipass_w(src, ws + sr * NPTS, a, br, c, g, x);
-      if constexpr (!SQ) bih::apply<T, X3>(opr, lo_off, x);
-      rows_j0<T, X3>(opr, lo_off, x, ur);
-    }
+    const int bl = b == 0 ? g.ey - 1 : b - 1;
+    const int br = b == g.ey - 1 ? 0 : b + 1;
+    T x[NPTS], ul[NP], ur[NP];
+    load(src, (size_t)a * g.ey + b, g.ncol, c, u);
+    bih::apply<T, X3>(opc, lo_off, u);
+    load(src, (size_t)a * g.ey + bl, g.ncol, c, x);
+    bih::op_rows<T, X3, NP - 1, NP, NP>(ops + sl * NPTS * NPTS, lo_off, x, ul);
+    load(src, (size_t)a * g.ey + br, g.ncol, c, x);
+    bih::op_rows<T, X3, 0, NP, NP>(ops + sr * NPTS * NPTS, lo_off, x, ur);
     // jpass
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
@@ -165,106 +200,287 @@ __device__ __forceinline__ void item(const T* ops, int lo_off, const T* ws,
   for (int p = 0; p < NPTS; ++p) dst[(e * NPTS + p) * g.ncol + c] = u[p];
 }
 
-// op (ex*ey,16,16): A, or A^2 for a precomposed step; w (ex*ey,16);
-// in/out/tmp (ex*ey,16,ncol); in the padded mode the row counts above.  A
-// grid-stride loop over tiles of (element row a, ELEMS elements from b0,
-// TILE columns); nsteps > 1 only under a cooperative launch.  A deep launch reads, in later steps, the out and tmp
-// it writes, so no pointer into them is __restrict__: a non-coherent load
-// could return a line cached before the grid sync.
-template <typename T, bool X3, bool SQ, int MODE>
-__global__ void __launch_bounds__(THREADS)
-rowchain_kernel(const T* __restrict__ op, const T* __restrict__ w,
-                const T* __restrict__ in, T* out, T* tmp,
-                Torus g, int nsteps) {
+// op (ex*ey,16,16) A; w (ex*ey,16); in/out (ex*ey,16,ncol); in the padded
+// mode the row counts of the step's first pass.  A grid-stride loop over
+// tiles of (element row a, BRIDGE_ELEMS elements from b0, TILE columns).
+template <typename T, bool X3, int MODE>
+__global__ void __launch_bounds__(TILE * BRIDGE_ELEMS)
+bridge_kernel(const T* __restrict__ op, const T* __restrict__ w,
+              const T* __restrict__ in, T* out, Torus g) {
   constexpr int PLANES = X3 ? 2 : 1;
-  constexpr int LO = SLOTS * NPTS * NPTS;
+  constexpr int LO = BRIDGE_SLOTS * NPTS * NPTS;
   __shared__ __align__(16) T ops[PLANES * LO];
-  __shared__ T ws[SLOTS * NPTS];
-  const int chunks = (g.ey + ELEMS - 1) / ELEMS;
+  __shared__ T ws[BRIDGE_SLOTS * NPTS];
+  const int chunks = (g.ey + BRIDGE_ELEMS - 1) / BRIDGE_ELEMS;
   const int ctiles = (g.ncol + TILE - 1) / TILE;
   const int tid = threadIdx.y * TILE + threadIdx.x;
+  const Pass<T> ps = pass_of<T>(0, 1, in, out, nullptr, g);
+  const long ntiles = (long)ps.rows * chunks * ctiles;
+  for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int ct = static_cast<int>(tile % ctiles);
+    const long rest = tile / ctiles;
+    const int b0 = static_cast<int>(rest % chunks) * BRIDGE_ELEMS;
+    const int a = ps.r0 + static_cast<int>(rest / chunks);
+    const size_t aop = static_cast<size_t>(a - ps.op_off);
+    __syncthreads();  // the previous tile is done with ops and ws
+    for (int i = tid; i < LO; i += TILE * BRIDGE_ELEMS) {
+      const int bs = wrap(b0 - 1 + i / (NPTS * NPTS), g.ey);
+      bih::stage<T, X3>(ops, LO, i, op[(aop * g.ey + bs) * NPTS * NPTS + i % (NPTS * NPTS)]);
+    }
+    if constexpr (MODE == BRIDGE_OUT) {
+      for (int i = tid; i < BRIDGE_SLOTS * NPTS; i += TILE * BRIDGE_ELEMS)
+        ws[i] = w[(aop * g.ey + wrap(b0 - 1 + i / NPTS, g.ey)) * NPTS + i % NPTS];
+    }
+    __syncthreads();
+    const int b = b0 + threadIdx.y;
+    const int c = ct * TILE + threadIdx.x;
+    if (b < g.ey && c < g.ncol)
+      item<T, X3, MODE>(ops, LO, ws, ps.src, ps.dst, a, a - ps.dst_off, b, c,
+                        threadIdx.y, threadIdx.y + 1, threadIdx.y + 2, g);
+  }
+}
+
+// ---- the step: one warp per element of a row tile -------------------------
+
+// Owned elements of one element row per tile: 24 at f32 (a production row
+// of 72 is three tiles, F on 26 elements for 24 owned), 8 at f64, whose
+// stages would not fit in shared memory at 24.
+template <typename T>
+constexpr int step_elems() {
+  return sizeof(T) == 8 ? 8 : 24;
+}
+// a side buffer row (one boundary point of one slot) of the bf16x3 step:
+// TILE columns and 8 spare values, so one store or read hits distinct banks;
+// a stage row TILE columns and 4 spare values, so the fragment-order reads
+// of one warp hit distinct banks
+constexpr int X3_STRIDE = TILE + 8;
+constexpr int STAGE_STRIDE = TILE + 4;
+// a warp's stage: its element's 16 points, then the row above's i = np-1
+// points and the row below's i = 0 points (ipass), then two buffers of the
+// element's operator (256 values) and inverse mass (16)
+constexpr int STAGE_ROWS = NPTS + 2 * NP;
+constexpr int OP_BUF = NPTS * NPTS + NPTS;
+constexpr int WARP_STAGE = STAGE_ROWS * STAGE_STRIDE + 2 * OP_BUF;
+
+// Shared memory of the step, in values of T: the warps' stages [SLOTS]
+// [WARP_STAGE] (warp y's is its own), then the side buffers [2][side]
+// [SLOTS][NP][stride] (side 0 the j = 0 points, side 1 the j = np-1 points;
+// the bf16x3 form starts side 1 16 values on, half the banks away).
+template <typename T, bool X3, int ELEMS>
+struct StepSmem {
+  static constexpr int SLOTS = ELEMS + 2;
+  static constexpr int STRIDE = X3 ? X3_STRIDE : TILE;
+  static constexpr int SIDE = SLOTS * NP * STRIDE + (X3 ? 16 : 0);
+  static constexpr size_t BYTES = sizeof(T) * (SLOTS * WARP_STAGE + 4 * SIDE);
+};
+
+// op (ex*ey,16,16): A, or A^2 for a precomposed step; w (ex*ey,16);
+// in/out/tmp (ex*ey,16,ncol); in the padded mode the row counts above.
+// Persistent: block b takes tiles b, b + gridDim.x, ... of (element row a,
+// ELEMS elements from b0, TILE columns), ct fastest, and each warp copies
+// what it needs of the next tile of the step (its rows of t, its operator
+// and inverse mass) into its own stage (cp.async) while it computes this
+// one, so a tile takes one barrier (the j exchange, through double-buffered
+// side buffers); nsteps > 1 only under a cooperative launch.  A deep launch
+// reads, in later steps, the out and tmp it writes, so no pointer into them
+// is __restrict__, and no copy reaches across the grid sync.
+template <typename T, bool X3, bool SQ, int ELEMS>
+__global__ void __launch_bounds__(TILE * (ELEMS + 2))
+step_kernel(const T* __restrict__ op, const T* __restrict__ w,
+            const T* __restrict__ in, T* out, T* tmp, Torus g, int nsteps) {
+  using S = StepSmem<T, X3, ELEMS>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int y = threadIdx.y, lane = threadIdx.x;
+  T* stage = smem + y * WARP_STAGE;
+  T* opbuf = stage + STAGE_ROWS * STAGE_STRIDE;  // [2][OP_BUF]
+  T* sides = smem + S::SLOTS * WARP_STAGE;
+  const int chunks = (g.ey + ELEMS - 1) / ELEMS;
+  const int ctiles = (g.ncol + TILE - 1) / TILE;
+  int buf = 0;  // the side buffers and operator buffer this tile uses
 
   for (int s = 0; s < nsteps; ++s) {
-    // step s writes `out` when nsteps-1-s is even, else tmp; it reads what
-    // step s-1 wrote (the input for s = 0)
-    T* dst = (nsteps - 1 - s) % 2 == 0 ? out : tmp;
-    const T* src = s == 0 ? in : (dst == out ? tmp : out);
-    // the rows this step computes: all ex, or (padded) r0 .. r0+rows-1 of the
-    // padded array; the operators' row is one less there, and dst's is
-    // p less where dst is an unpadded out
-    const int rows = g.pad ? g.ex + 2 * (g.pad - 1 - s) : g.ex;
-    const int r0 = g.pad ? s + 1 : 0;
-    const int op_off = g.pad ? 1 : 0;
-    const int dst_off = (dst == out && !g.out_pad) ? g.pad : 0;
-    const long ntiles = (long)rows * chunks * ctiles;
-    for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int ct = static_cast<int>(tile % ctiles);
+    const Pass<T> ps = pass_of(s, nsteps, in, out, tmp, g);
+    const long ntiles = (long)ps.rows * chunks * ctiles;
+    // the tile's coordinates: column tile, first owned element, t's row
+    auto coords = [&](long tile, int& ct, int& b0, int& a) {
+      ct = static_cast<int>(tile % ctiles);
       const long rest = tile / ctiles;
-      const int b0 = static_cast<int>(rest % chunks) * ELEMS;
-      const int a = r0 + static_cast<int>(rest / chunks);
-      const size_t aop = static_cast<size_t>(a - op_off);
-      __syncthreads();  // the previous tile is done with ops and ws
-      for (int i = tid; i < LO; i += THREADS) {
-        int bs = (b0 - 1 + i / (NPTS * NPTS)) % g.ey;
-        if (bs < 0) bs += g.ey;
-        const T l = op[(aop * g.ey + bs) * NPTS * NPTS + i % (NPTS * NPTS)];
-        bih::stage<T, X3>(ops, LO, i, l);
+      b0 = static_cast<int>(rest % chunks) * ELEMS;
+      a = ps.r0 + static_cast<int>(rest / chunks);
+    };
+    // warp y's stage for `tile`: this lane's column of its t rows, and its
+    // operator and inverse mass into operator buffer `into`
+    auto prefetch = [&](long tile, int into) {
+      if (tile >= ntiles) return;
+      int ct, b0, a, au, ad;
+      coords(tile, ct, b0, a);
+      ineighbours(a, g, au, ad);
+      const int b = wrap(b0 - 1 + y, g.ey);
+      const int c = ct * TILE + lane;
+      const bool live = c < g.ncol;
+      const int cc = live ? c : 0;
+      const T* own = ps.src + ((size_t)a * g.ey + b) * NPTS * g.ncol + cc;
+      const T* up = ps.src + ((size_t)au * g.ey + b) * NPTS * g.ncol + cc;
+      const T* down = ps.src + ((size_t)ad * g.ey + b) * NPTS * g.ncol + cc;
+#pragma unroll
+      for (int p = 0; p < NPTS; ++p)
+        bih::cp_async<sizeof(T)>(stage + p * STAGE_STRIDE + lane, own + (size_t)p * g.ncol,
+                                 live);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        bih::cp_async<sizeof(T)>(stage + (NPTS + j) * STAGE_STRIDE + lane,
+                                 up + (size_t)(NPTS - NP + j) * g.ncol, live);
+        bih::cp_async<sizeof(T)>(stage + (NPTS + NP + j) * STAGE_STRIDE + lane,
+                                 down + (size_t)j * g.ncol, live);
       }
-      if constexpr (MODE != BRIDGE_IN) {
-        for (int i = tid; i < SLOTS * NPTS; i += THREADS) {
-          int bs = (b0 - 1 + i / NPTS) % g.ey;
-          if (bs < 0) bs += g.ey;
-          ws[i] = w[(aop * g.ey + bs) * NPTS + i % NPTS];
+      // the operator and inverse mass as 16-byte pieces
+      const size_t eo = (size_t)(a - ps.op_off) * g.ey + b;
+      constexpr int PER16 = 16 / sizeof(T);
+      T* ob = opbuf + into * OP_BUF;
+      for (int i = lane * PER16; i < NPTS * NPTS; i += TILE * PER16)
+        bih::cp_async16(ob + i, op + eo * NPTS * NPTS + i);
+      if (lane * PER16 < NPTS)
+        bih::cp_async16(ob + NPTS * NPTS + lane * PER16, w + eo * NPTS + lane * PER16);
+      bih::cp_async_commit();
+    };
+
+    prefetch(blockIdx.x, buf);
+    for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      int ct, b0, a;
+      coords(tile, ct, b0, a);
+      const int n_own = g.ey - b0 < ELEMS ? g.ey - b0 : ELEMS;
+      const int b = wrap(b0 - 1 + y, g.ey);
+      // slots 1..n_own are owned; 0 and n_own + 1 their outer neighbours
+      const bool need = y <= n_own + 1, owned = y >= 1 && y <= n_own;
+      const size_t ed = (size_t)(a - ps.dst_off) * g.ey + b;  // in dst
+      T* side = sides + buf * 2 * S::SIDE;
+      const T* opc = opbuf + buf * OP_BUF;  // this tile's operator, then w
+      const T* wc = opc + NPTS * NPTS;
+      bih::cp_async_wait();
+      __syncwarp();
+      if constexpr (X3) {
+        // lane (gq, t): points pt(t, k) of columns c0 + 16m + 8r (k = 4r+q)
+        using bih::tc::pt;
+        constexpr int MT = TILE / bih::tc::MCOLS;
+        const int gq = lane >> 2, t = lane & 3;
+        float x[MT][8];
+        // d = ipass(t) * w: lanes t < 2 hold i = 0 points (q = 0, 1) and add
+        // the row above's i = np-1 points; t >= 2 hold i = np-1 points (q =
+        // 2, 3) and add the row below's i = 0 points
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int p = pt(t, k & 3), col = 16 * m + 8 * (k >> 2) + gq;
+            float v = stage[p * STAGE_STRIDE + col];
+            if ((t < 2) == ((k & 3) < 2))
+              v += stage[(t < 2 ? NPTS + p : NPTS + NP + p - (NPTS - NP)) * STAGE_STRIDE + col];
+            x[m][k] = v * wc[p];
+          }
+        const bih::tc::Op F = bih::tc::load_op(opc);
+        __syncwarp();  // every lane has read the stage before it is refilled
+        prefetch(tile + gridDim.x, buf ^ 1);
+        if (need) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            if constexpr (!SQ) bih::tc::apply(F, x[m]);
+            bih::tc::apply(F, x[m]);
+            bih::tc::put_jside(x[m], side + (t & 1) * S::SIDE + y * NP * S::STRIDE,
+                               S::STRIDE, 16 * m + gq);
+          }
+        }
+        __syncthreads();  // the other buffer serves the next tile
+        if (owned) {
+          // jpass: j = 0 points gain the left slot's j = np-1 points, j = np-1
+          // points the right slot's j = 0 points
+          const T* nb = side + (1 - (t & 1)) * S::SIDE
+                        + ((t & 1) ? y + 1 : y - 1) * NP * S::STRIDE;
+          const int c0 = ct * TILE + gq;
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            bih::tc::add_jside(x[m], nb, S::STRIDE, 16 * m + gq);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const int c = c0 + bih::tc::MCOLS * m + 8 * (k >> 2);
+              if (c < g.ncol) ps.dst[(ed * NPTS + pt(t, k & 3)) * g.ncol + c] = x[m][k];
+            }
+          }
+        }
+      } else {
+        // d = ipass(t) * w, in ipass_w's order
+        T u[NPTS];
+#pragma unroll
+        for (int p = 0; p < NPTS; ++p) u[p] = stage[p * STAGE_STRIDE + lane];
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          u[j] += stage[(NPTS + j) * STAGE_STRIDE + lane];
+          u[NPTS - NP + j] += stage[(NPTS + NP + j) * STAGE_STRIDE + lane];
+        }
+        __syncwarp();  // every lane has read the stage before it is refilled
+        prefetch(tile + gridDim.x, buf ^ 1);
+        const int c = ct * TILE + lane;
+        const bool live = c < g.ncol;
+        if (need) {
+#pragma unroll
+          for (int p = 0; p < NPTS; ++p) u[p] *= wc[p];
+          // F: A twice, or A^2 once; a loop, not unrolled (unrolled, the
+          // two applications of the A.A form spill or run short of registers)
+#pragma unroll 1
+          for (int r = 0; r < (SQ ? 1 : 2); ++r) bih::apply<T, false>(opc, 0, u);
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            side[(y * NP + i) * TILE + lane] = u[i * NP];
+            side[S::SIDE + (y * NP + i) * TILE + lane] = u[i * NP + NP - 1];
+          }
+        }
+        __syncthreads();  // the other buffer serves the next tile
+        if (owned && live) {
+          // jpass
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            u[i * NP] += side[S::SIDE + ((y - 1) * NP + i) * TILE + lane];
+            u[i * NP + NP - 1] += side[((y + 1) * NP + i) * TILE + lane];
+          }
+#pragma unroll
+          for (int p = 0; p < NPTS; ++p) ps.dst[(ed * NPTS + p) * g.ncol + c] = u[p];
         }
       }
-      __syncthreads();
-      const int b = b0 + threadIdx.y;
-      const int c = ct * TILE + threadIdx.x;
-      if (b < g.ey && c < g.ncol)
-        item<T, X3, SQ, MODE>(ops, LO, ws, src, dst, a, a - dst_off, b, c,
-                              threadIdx.y, threadIdx.y + 1, threadIdx.y + 2, g);
+      buf ^= 1;
     }
     if (s + 1 < nsteps) cooperative_groups::this_grid().sync();
   }
 }
 
-template <typename T, bool X3, bool SQ, int MODE>
-int launch(const void* op, const void* w, const void* in, void* out, void* tmp,
-           int ex, int ey, int ncol, int nsteps, int pad, int out_pad,
-           void* stream) {
-  if (ex < 1 || ey < 1 || ncol < 1 || nsteps < 1 || (MODE != STEP && nsteps != 1)
-      || (nsteps > 1 && tmp == nullptr) || pad < 0
-      || (pad > 0 && (MODE == BRIDGE_IN || pad != nsteps || (nsteps > 1 && !out_pad))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Torus g{ex, ey, ncol, pad, pad > 0 && out_pad};
-  // the first step's rows: the most tiles of any step
-  const long ntiles = (long)(pad ? ex + 2 * pad - 2 : ex) * ((ey + ELEMS - 1) / ELEMS)
-                      * ((ncol + TILE - 1) / TILE);
-  auto kern = rowchain_kernel<T, X3, SQ, MODE>;
-  const T* op_ = static_cast<const T*>(op);
-  const T* w_ = static_cast<const T*>(w);
-  const T* in_ = static_cast<const T*>(in);
-  T* out_ = static_cast<T*>(out);
-  T* tmp_ = static_cast<T*>(tmp);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (nsteps == 1) {
-    kern<<<static_cast<unsigned>(ntiles), dim3(TILE, ELEMS), 0, st>>>(
-        op_, w_, in_, out_, tmp_, g, nsteps);
-    return static_cast<int>(cudaGetLastError());
-  }
-  // persistent cooperative grid: every block resident at once
+template <typename T, bool X3, bool SQ, int ELEMS>
+int launch_step(const T* op, const T* w, const T* in, T* out, T* tmp, Torus g,
+                int nsteps, cudaStream_t st) {
+  auto kern = step_kernel<T, X3, SQ, ELEMS>;
+  constexpr size_t smem = StepSmem<T, X3, ELEMS>::BYTES;
+  constexpr int THREADS = TILE * (ELEMS + 2);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  // persistent: as many blocks as are resident at once (every block
+  // resident is also what the cooperative launch of a deep step needs)
   int dev, sms, per_sm;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // the first step's rows: the most tiles of any step
+  const long ntiles = (long)(g.pad ? g.ex + 2 * g.pad - 2 : g.ex)
+                      * ((g.ey + ELEMS - 1) / ELEMS) * ((g.ncol + TILE - 1) / TILE);
   const long cap = (long)sms * per_sm;
   const unsigned blocks = static_cast<unsigned>(ntiles < cap ? ntiles : cap);
-  void* args[] = {&op_, &w_, &in_, &out_, &tmp_, const_cast<Torus*>(&g), &nsteps};
+  if (nsteps == 1) {
+    kern<<<blocks, dim3(TILE, ELEMS + 2), smem, st>>>(op, w, in, out, tmp, g, nsteps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  void* args[] = {&op, &w, &in, &out, &tmp, &g, &nsteps};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(blocks),
-                                    dim3(TILE, ELEMS), args, 0, st);
+                                    dim3(TILE, ELEMS + 2), args, smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -273,21 +489,33 @@ template <typename T, bool X3>
 int dispatch(int mode, int sq, const void* op, const void* w, const void* in,
              void* out, void* tmp, int ex, int ey, int ncol, int nsteps,
              int pad, int out_pad, void* stream) {
-  switch (mode) {
-    case BRIDGE_IN:
-      return launch<T, X3, false, BRIDGE_IN>(op, w, in, out, tmp, ex, ey, ncol, nsteps,
-                                             pad, out_pad, stream);
-    case BRIDGE_OUT:
-      return launch<T, X3, false, BRIDGE_OUT>(op, w, in, out, tmp, ex, ey, ncol, nsteps,
-                                              pad, out_pad, stream);
-    case STEP:
-      return sq ? launch<T, X3, true, STEP>(op, w, in, out, tmp, ex, ey, ncol, nsteps,
-                                            pad, out_pad, stream)
-                : launch<T, X3, false, STEP>(op, w, in, out, tmp, ex, ey, ncol, nsteps,
-                                             pad, out_pad, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (ex < 1 || ey < 1 || ncol < 1 || nsteps < 1 || (mode != STEP && nsteps != 1)
+      || (nsteps > 1 && tmp == nullptr) || pad < 0
+      || (pad > 0 && (mode == BRIDGE_IN || pad != nsteps || (nsteps > 1 && !out_pad))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Torus g{ex, ey, ncol, pad, pad > 0 && out_pad};
+  const T* op_ = static_cast<const T*>(op);
+  const T* w_ = static_cast<const T*>(w);
+  const T* in_ = static_cast<const T*>(in);
+  T* out_ = static_cast<T*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (mode == STEP) {
+    T* tmp_ = static_cast<T*>(tmp);
+    return sq ? launch_step<T, X3, true, step_elems<T>()>(op_, w_, in_, out_, tmp_, g,
+                                                          nsteps, st)
+              : launch_step<T, X3, false, step_elems<T>()>(op_, w_, in_, out_, tmp_, g,
+                                                           nsteps, st);
   }
+  if (mode != BRIDGE_IN && mode != BRIDGE_OUT) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = pad ? ex + 2 * pad - 2 : ex;
+  const unsigned blocks = static_cast<unsigned>(
+      (long)rows * ((ey + BRIDGE_ELEMS - 1) / BRIDGE_ELEMS) * ((ncol + TILE - 1) / TILE));
+  const dim3 block(TILE, BRIDGE_ELEMS);
+  if (mode == BRIDGE_IN)
+    bridge_kernel<T, X3, BRIDGE_IN><<<blocks, block, 0, st>>>(op_, w_, in_, out_, g);
+  else
+    bridge_kernel<T, X3, BRIDGE_OUT><<<blocks, block, 0, st>>>(op_, w_, in_, out_, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -12,39 +12,58 @@
 // assembly as masked sublane shifts; here each element's operator is used
 // as it is and the neighbour index is explicit.
 //
-// Design: columns (q, k) are independent and the DSS couples only
+// Windows: columns (q, k) are independent and the DSS couples only
 // neighbouring elements of the same column.  One block owns a window of
-// elements and one tile of columns: thread (x, y) holds the 16 GLL values of
-// window element y, column x, in registers for the whole launch.  On the
-// ring the window is B + 2h consecutive elements (indices wrap mod nelemd,
-// so a small ring may appear in the window more than once).  Window-fed
-// (a shard of a decomposed ring) the elements are the shard's owned block
-// with an exchanged strip of `strip` >= h elements on each side, three
-// arrays read in place of one wrapped index, and the operators and inverse
-// mass those of the extended block; an element past the strips loads as
-// zero (it lies more than h from every owned element), and only owned
-// elements are stored.  With the shard's own ends as strips (one shard) the
-// windows, and so the results, are bit for bit those of the ring.  On the torus
-// (e = a*ey + b) it is Bi + 2h element rows of rj elements each: whole rows
-// (rj = ey) where 2h+1 of them fit, as in the TPU kernel, so the j
-// assembly wraps inside the window and only the i assembly consumes halo
-// rows; otherwise a rectangle of Bj + 2h elements per row, with halo in j
-// too.  The i assembly sums the j-summed field, so corners collect all four
-// sharers.  Each step uses up one halo unit per side (the window's edge
-// elements assemble with zeros), so the centre stays exact while
-// nsteps <= h; the host sets h = nsteps.  Each assembly pass exchanges only
-// the boundary points (4 values a thread and side) through shared memory,
-// between two barriers.  The window's operators (and with `precomposed` the
-// squared operators A^2, ring only), split into bf16 hi/lo planes once per
-// block for bf16x3, and the inverse mass sit in dynamic shared memory and
-// are read as warp-wide broadcasts, as in K1.  With `precomposed` the
-// d-carry chain A.D.(A^2.D)^(n-1).A runs n+1 applications per launch
-// instead of 2n.
+// elements and one tile of 32 columns for the whole launch.  On the ring the
+// window is B + 2h consecutive elements (indices wrap mod nelemd, so a small
+// ring may appear in the window more than once).  Window-fed (a shard of a
+// decomposed ring) the elements are the shard's owned block with an
+// exchanged strip of `strip` >= h elements on each side, three arrays read
+// in place of one wrapped index, and the operators and inverse mass those of
+// the extended block; an element past the strips loads as zero (it lies
+// more than h from every owned element), and only owned elements are
+// stored.  With the shard's own ends as strips (one shard) the windows, and
+// so the results, are bit for bit those of the ring.  On the torus (e =
+// a*ey + b) it is Bi + 2h element rows of rj elements each: whole rows (rj =
+// ey) where 2h+1 of them fit, as in the TPU kernel, so the j assembly wraps
+// inside the window and only the i assembly consumes halo rows; otherwise a
+// rectangle of Bj + 2h elements per row, with halo in j too.  The i
+// assembly sums the j-summed field, so corners collect all four sharers.
+// Each step uses up one halo unit per side (the window's edge elements
+// assemble with zeros), so the centre stays exact while nsteps <= h; the
+// host sets h = nsteps.  Each assembly exchanges only the boundary points
+// through shared memory.  With `precomposed` (ring only) the d-carry chain
+// A.D.(A^2.D)^(n-1).A runs n+1 applications per launch instead of 2n.
 //
-// Bound: FMA issue (256 per application per column, 768 for bf16x3) times
-// the window's overcompute (window / centre elements); device memory is
-// touched once per launch (read the window, write the centre).  Tensor
-// cores are a later step.
+// Two kernels on those windows:
+//  - dss_ring_x3_kernel, the ring's bf16x3 forms (K14 _x3 and _sq_x3, the
+//    ring and its window-fed mode): one warp per window element, 32
+//    columns per warp (two m-tiles), the applications on the tensor cores
+//    (bih::tc, biharmonic_common.cuh), the operator's hi/lo B fragments in
+//    registers (A, then A^2 for the middle of a precomposed chain, then A
+//    again, each loaded when it is needed), the field read in fragment order
+//    (8 consecutive columns x 4 points per read).  The blocks are
+//    persistent, one per SM (1024 threads at <= 64 registers), each warp
+//    copying its element's rows of the next (window, column tile) into its
+//    own stage with cp.async while it computes this one.  Shared memory
+//    holds those stages and the side buffers of the assembly,
+//    double-buffered so each step takes one barrier, not two.
+//  - dss_resident_kernel, the exact f32 and f64 ring and every torus form
+//    (K19): thread (x, y) holds the 16 GLL values of window element y,
+//    column x; the window's operators (split once per block into bf16 hi/lo
+//    planes for the torus's bf16x3) and inverse mass sit in shared memory
+//    and are read as warp-wide broadcasts (LDS.128), as in K1.
+//
+// Bound: device memory is touched once per launch (read the window, write
+// the centre), ~0.15 ms at production f32 whatever the depth; the
+// operations are 256 FMAs per application per column (exact), or three
+// bf16 products on the tensor cores plus ~80 f32 operations for the splits
+// and sums (bf16x3), times the window's (B+2h)/B overcompute.  The exact
+// kernel is bound by FMA issue and its shared-memory operand reads; the
+// bf16x3 kernel by the f32 work around the products and the per-step
+// barrier of a one-block-per-SM launch, about 0.11 ms per step at
+// production, so a deeper launch pays off until the window's overcompute
+// grows (6 steps: B = 20 of 32).
 
 #include <cuda_runtime.h>
 
@@ -225,6 +244,176 @@ dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
   }
 }
 
+// A side buffer row (one boundary point of one element) holds TILE columns
+// and 8 spare values, so the lanes of one store or read hit distinct banks;
+// a stage row (one point of one element) TILE columns and 4 spare values, so
+// the fragment-order reads of one warp hit distinct banks.
+constexpr int SIDE_STRIDE = TILE + 8;
+constexpr int STAGE_STRIDE = TILE + 4;
+
+// Shared memory of dss_ring_x3_kernel, in floats: the stage
+// [W][NPTS][STAGE_STRIDE] (warp y's rows are its own) and the side buffers
+// [buffer][side][W][NP][SIDE_STRIDE] (side 0 the j = 0 points, side 1 the
+// j = np-1 points, which starts 16 values on, half the banks away).
+__host__ __device__ constexpr int x3_side_len(int W) { return W * NP * SIDE_STRIDE + 16; }
+__host__ __device__ constexpr int x3_smem_floats(int W) {
+  return W * NPTS * STAGE_STRIDE + 4 * x3_side_len(W);
+}
+
+// The ring's bf16x3 forms on the tensor cores.  Block (TILE, W): warp y owns
+// window element y and TILE columns of a tile as two m-tiles.  Persistent:
+// block b takes tiles b, b + gridDim.x, ... of (window bj, column tile ct),
+// ct fastest; each warp copies its element's rows of the next tile into its
+// own stage rows (cp.async) while it computes this one.  Arguments as
+// dss_resident_kernel's (g.rj = W).
+template <bool SQ>
+__global__ void __launch_bounds__(TILE * MAX_WINDOW, 1)
+dss_ring_x3_kernel(const float* __restrict__ L, const float* __restrict__ L2,
+                   const float* __restrict__ w, const float* __restrict__ hl,
+                   const float* __restrict__ q, const float* __restrict__ hr,
+                   float* __restrict__ out, int ncol, int nsteps, Window g) {
+  using bih::tc::pt;
+  constexpr int MT = TILE / bih::tc::MCOLS;
+  extern __shared__ __align__(16) float smem_x3[];
+  const int W = blockDim.y, y = threadIdx.y, lane = threadIdx.x;
+  const int gq = lane >> 2, t = lane & 3;
+  float* stage = smem_x3 + y * NPTS * STAGE_STRIDE;
+  float* xch = smem_x3 + W * NPTS * STAGE_STRIDE;
+  const int side_len = x3_side_len(W);
+  const int ctiles = (ncol + TILE - 1) / TILE;
+  const int ntiles = g.nbj * ctiles;
+  const bool fed = g.strip > 0;
+
+  // window element y of window bj: its index (extended, window-fed), whether
+  // it lies inside the strips, and the array and index holding its field
+  struct Elem {
+    int el, se;
+    bool inside;
+    const float* src;
+  };
+  auto elem = [&](int bj) {
+    Elem e;
+    e.el = bj * g.center_j - g.halo_j + y;
+    if (fed) {
+      e.el += g.strip;
+    } else {
+      e.el %= g.ey;
+      if (e.el < 0) e.el += g.ey;
+    }
+    e.inside = !fed || (e.el >= 0 && e.el < g.ey + 2 * g.strip);
+    e.src = q;
+    e.se = e.el;
+    if (fed) {
+      if (e.el < g.strip) {
+        e.src = hl;
+      } else if (e.el < g.strip + g.ey) {
+        e.se = e.el - g.strip;
+      } else {
+        e.src = hr;
+        e.se = e.el - g.strip - g.ey;
+      }
+    }
+    return e;
+  };
+  // this lane's column of each of the element's 16 rows of `tile`
+  auto prefetch = [&](int tile) {
+    if (tile >= ntiles) return;
+    const Elem e = elem(tile / ctiles);
+    const int c = (tile % ctiles) * TILE + lane;
+    const bool ok = e.inside && c < ncol;
+#pragma unroll
+    for (int p = 0; p < NPTS; ++p)
+      bih::cp_async<4>(stage + p * STAGE_STRIDE + lane,
+                       ok ? e.src + ((size_t)e.se * NPTS + p) * ncol + c : q, ok);
+    bih::cp_async_commit();
+  };
+
+  // d = DSS(s) * w, the j pass through the side buffers
+  const bool has_l = y > 0, has_r = y < W - 1;
+  int buf = 0;
+  float x[MT][8], wv[4];
+  auto assemble = [&]() {
+    float* side = xch + 2 * buf * side_len;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      bih::tc::put_jside(x[m], side + (t & 1) * side_len + y * NP * SIDE_STRIDE,
+                         SIDE_STRIDE, 16 * m + gq);
+    __syncthreads();  // the other buffer serves the next step
+    // j = 0 points gain the left element's j = np-1 points, j = np-1 points
+    // the right element's j = 0 points
+    if ((t & 1) ? has_r : has_l) {
+      const float* nb = side + (1 - (t & 1)) * side_len
+                        + ((t & 1) ? y + 1 : y - 1) * NP * SIDE_STRIDE;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) bih::tc::add_jside(x[m], nb, SIDE_STRIDE, 16 * m + gq);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[m][k] *= wv[k & 3];
+    buf ^= 1;
+  };
+  auto apply = [&](const bih::tc::Op& op) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) bih::tc::apply(op, x[m]);
+  };
+
+  prefetch(blockIdx.x);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int bj = tile / ctiles;
+    const Elem e = elem(bj);
+    bih::cp_async_wait();
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        x[m][k] = stage[pt(t, k & 3) * STAGE_STRIDE + 16 * m + 8 * (k >> 2) + gq];
+    __syncwarp();  // every lane has read the stage before it is refilled
+    prefetch(tile + gridDim.x);
+
+    const float* A = e.inside ? L + (size_t)e.el * NPTS * NPTS : nullptr;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wv[k] = e.inside ? w[(size_t)e.el * NPTS + pt(t, k)] : 0.f;
+    bih::tc::Op op = bih::tc::load_op(A);
+    if constexpr (SQ) {
+      if (nsteps > 0) {
+        apply(op);
+        assemble();
+        if (nsteps > 1) {
+          op = bih::tc::load_op(e.inside ? L2 + (size_t)e.el * NPTS * NPTS : nullptr);
+          for (int s = 1; s < nsteps; ++s) {
+            apply(op);
+            assemble();
+          }
+          op = bih::tc::load_op(A);
+        }
+        apply(op);
+      }
+    } else {
+      for (int s = 0; s < nsteps; ++s) {
+        apply(op);
+        assemble();
+        apply(op);
+      }
+    }
+
+    // (window-fed, b0 + y is the owned index)
+    const int b0 = bj * g.center_j - g.halo_j;
+    if (y >= g.halo_j && y < g.halo_j + g.center_j && b0 + y < g.ey) {
+      const size_t eo = static_cast<size_t>(fed ? e.el - g.strip : e.el);
+      const int c0 = (tile % ctiles) * TILE + gq;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int c = c0 + bih::tc::MCOLS * m + 8 * (k >> 2);
+          if (c < ncol) out[(eo * NPTS + pt(t, k & 3)) * ncol + c] = x[m][k];
+        }
+    }
+  }
+}
+
 // Window sizes.  The ring: MAX_WINDOW elements at TILE columns.  The torus:
 // as many whole rows as fit in MAX_WINDOW elements at TILE columns, or in
 // 2*MAX_WINDOW at TILE/2; where 2*nsteps+1 whole rows do not fit, an 8 x 8
@@ -266,19 +455,43 @@ int launch(const void* L, const void* L2, const void* w, const void* hl,
   }
   const int nbi = TORUS ? (g.ex + g.center_i - 1) / g.center_i : 1;
   const int W = (TORUS ? g.center_i + 2 * h : 1) * g.rj;
-  const size_t smem = sizeof(T) * ((SQ ? 2 : 1) * (X3 ? 2 : 1) * W * NPTS * NPTS
-                                   + W * NPTS + 2 * W * NP * tc);
-  auto kern = dss_resident_kernel<T, X3, SQ, TORUS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(nbi * g.nbj, (ncol + tc - 1) / tc);
-  kern<<<grid, dim3(tc, W), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(L), static_cast<const T*>(L2),
-      static_cast<const T*>(w), static_cast<const T*>(hl),
-      static_cast<const T*>(q), static_cast<const T*>(hr), static_cast<T*>(out),
-      ncol, nsteps, g);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (X3 && !TORUS) {
+    const size_t smem = sizeof(float) * x3_smem_floats(W);
+    auto kern = dss_ring_x3_kernel<SQ>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    // persistent: as many blocks as are resident at once (one per SM for a
+    // 32-element window: 1024 threads at <= 64 registers)
+    int dev, sms, per_sm;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TILE * W, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long ntiles = (long)grid.x * grid.y, cap = (long)sms * per_sm;
+    kern<<<static_cast<unsigned>(ntiles < cap ? ntiles : cap), dim3(TILE, W), smem,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(L), static_cast<const float*>(L2),
+        static_cast<const float*>(w), static_cast<const float*>(hl),
+        static_cast<const float*>(q), static_cast<const float*>(hr),
+        static_cast<float*>(out), ncol, nsteps, g);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    const size_t smem = sizeof(T) * ((SQ ? 2 : 1) * (X3 ? 2 : 1) * W * NPTS * NPTS
+                                     + W * NPTS + 2 * W * NP * tc);
+    auto kern = dss_resident_kernel<T, X3, SQ, TORUS>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, dim3(tc, W), smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(L), static_cast<const T*>(L2),
+        static_cast<const T*>(w), static_cast<const T*>(hl),
+        static_cast<const T*>(q), static_cast<const T*>(hr), static_cast<T*>(out),
+        ncol, nsteps, g);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, bool X3>

@@ -13,7 +13,12 @@ same variant names (`fused_operator_rowchain`, `_x3`, `_sq`, `_sq_x3`).
 The x3 forms split the operator they apply into bf16 hi/lo parts: A in the
 bridges, A² (or A) in the step.
 
-The CUDA kernels are csrc/biharmonic_dss2d_rowchain.cu.  Beside them here:
+The CUDA kernels are csrc/biharmonic_dss2d_rowchain.cu.  The step computes
+each element's F once per tile and exchanges the j boundary points; its
+bf16x3 forms run on the tensor cores (mma.sync), which sum a product's
+terms in their own order, so they match the plain version within the
+registered 5e-5, not bit for bit, and still equal each other (depth k and
+k depth-1 launches, the padded mode) bit for bit.  Beside them here:
 the plain PyTorch version of each (the CPU path, and what the kernels are
 compared with on the card) and the three wrappers, each with a launch
 counter; `rowchain_step.depth_launches` also counts the step's launches by
@@ -63,22 +68,29 @@ from cdk_torch.kernels.biharmonic.reference import rrearth_as
 NPG = 4
 NPTS = NPG * NPG
 PRECISIONS = ("highest", "bf16x3")
-# t-steps per step launch in `loop`, the fastest measured at production f32
-# on the H100 (PERF.md §6), us per step at depth 1 / 2 / 3 / 4 / 8:
-#   A·A      806.8 / 779.1 / 778.4 / 777.8 / 777.2
-#   x3      1292.3 / 1252.6 / 1252.2 / 1250.9 / 1250.2
-#   sq       457.4 / 433.0 / 431.4 / 431.1 / 430.1
-#   sq_x3    549.3 / 566.0 / 565.7 / 565.4 / 565.5
-# so depth 4, except the precomposed bf16x3 form at depth 1
+# t-steps per step launch in `loop`, from chip_smoke.py's depth sweep at
+# production f32 on the H100 (PERF.md §6), us per step at depth 1 / 2 / 3 /
+# 4 / 8:
+#   A·A      347.8 / 348.9 / 348.2 / 348.5 / 347.9
+#   x3       271.3 / 270.1 / 269.6 / 269.2 / 268.5
+#   sq       273.8 / 274.1 / 274.3 / 272.4 / 271.4
+#   sq_x3    253.8 / 252.3 / 251.8 / 250.8 / 250.1
+# flat: every step passes through device memory, so the depth saves only
+# launches; depth 4 is within 0.5 % of the fastest for every form
 DEPTH = 4
 
 
 def loop_depth(precision: str, precomposed: bool) -> int:
-    """The step depth `loop` launches with for a form."""
-    return 1 if (precision, precomposed) == ("bf16x3", True) else DEPTH
+    """The step depth `loop` launches with for a form: DEPTH for every
+    form."""
+    return DEPTH
 
 
 BRIDGE_IN, STEP, BRIDGE_OUT = 0, 1, 2  # the kernels' modes
+# the step kernel's tile at f32: this many elements of one element row,
+# plus one halo element on each side (step_elems in the CUDA source; 8 at
+# f64)
+STEP_ELEMS = 24
 
 
 def _prec(precision: str) -> str:

@@ -13,7 +13,9 @@ same variant names:
 
 The CUDA kernel is csrc/biharmonic_dss_resident.cu: a window of elements
 with h = k halo elements per side, so one launch takes at most MAX_STEPS
-steps.  Its torus switch is K19 (`dss2d_resident.py`), which shares
+steps.  The bf16x3 forms run on the tensor cores (mma.sync), which sum a
+product's terms in their own order, so they match the plain version within
+the registered 5e-5, not bit for bit; the exact forms are bit for bit.  Its torus switch is K19 (`dss2d_resident.py`), which shares
 `validate` and `launch` from here.  Beside it here: `dss_resident_plain`,
 the same function in plain PyTorch over the whole field (the CPU path, and
 what the kernel is compared with on the card), and the wrapper
@@ -61,9 +63,13 @@ NPG = 4
 NPTS = NPG * NPG
 PRECISIONS = ("highest", "bf16x3")
 MAX_STEPS = 15  # 2·steps + 1 window elements <= the kernel's 32
-# steps per launch in `loop`: the fastest of 2-6 at production on the H100
-# for the champion (PERF.md §6); deeper windows pay (B+2k)/B overcompute
-DEPTH = 4
+# steps per launch in `loop`, the fastest at production f32 on the H100
+# (chip_smoke.py's depth sweep, PERF.md §6), us per step at 2 / 3 / ... / 8:
+#   sq_x3  168.2 / 133.8 / 117.8 / 109.4 / 109.2 / 110.7 / 115.0
+#   sq     286.3 / 236.8 / 214.8 / 206.1 / 203.8 / 214.2 / 225.6
+# deeper launches pass through device memory less often but pay the
+# window's (B+2k)/B overcompute
+DEPTH = 6
 
 
 def dss_resident_plain(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,

@@ -7,7 +7,9 @@ Phases, each printing its result; the first failure exits non-zero:
 
   1. device   require CUDA and compute capability 9.0; print the card's
               name and power limit (nvidia-smi)
-  2. build    compile cdk_torch/csrc/*.cu with nvcc (sm_90a)
+  2. build    compile cdk_torch/csrc/*.cu with nvcc (sm_90a); print ptxas's
+              registers and spills of K14's bf16x3 ring kernel and the
+              rowchain step kernel (the tensor-core redesigns)
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes (shipped and production),
               f32 and f64, with the family's gate; both timed with CUDA
@@ -28,11 +30,16 @@ Phases, each printing its result; the first failure exits non-zero:
               then at rrearth 0.1 the launch depth each loop uses, each
               depth-k step also bitwise against k depth-1 launches, and
               every resident and rowchain loop(n) against n chained plain
-              steps for n in {1, 2, k, k+1, 2k+1}; the masked-global
-              MPDATA kernel K20-K25 on shard windows of the shipped config
-              (f32 and f64, 1 and 4 shards) and the production 8192 x 32 x
-              58 (f32, 1 shard; K24/K25 at kstep 2 and 4), K23 bitwise
-              equal to K22 and K25 to K24
+              steps for n in {1, 2, k, k+1, 2k+1} (the bf16x3 forms of K14
+              and the rowchain step run on the tensor cores, which sum a
+              product's terms in their own order: held to the 5e-5 gate,
+              not bit for bit); a depth sweep at production f32, us per
+              step: K14 at 2-8 steps per launch (sq_x3, sq) and the
+              rowchain step's four forms at depths 1, 2, 3, 4, 8; the
+              masked-global MPDATA kernel K20-K25 on shard windows of the
+              shipped config (f32 and f64, 1 and 4 shards) and the
+              production 8192 x 32 x 58 (f32, 1 shard; K24/K25 at kstep 2
+              and 4), K23 bitwise equal to K22 and K25 to K24
   4. main     cdk_torch.harness.driver.run_kernel for biharmonic,
               biharmonic_dss, biharmonic_dss2d, mpdata and cke: shipped size
               with host init at f64 (every variant against the in-process
@@ -72,6 +79,7 @@ last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -226,6 +234,24 @@ def phase_build():
     built = build.build()
     print(f"[2 build] {built.path.name}: nvcc {built.seconds:.1f} s")
     print(built.log.strip(), file=sys.stderr)
+    # ptxas's registers and spills of the kernels redesigned for the tensor
+    # cores (K14's bf16x3 ring, the rowchain step)
+    for m in re.finditer(r"Function properties for (\S+)\n\s+(\d+) bytes stack frame, "
+                         r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
+                         r"(\d+) registers", built.log):
+        k = re.search(r"(dss_ring_x3_kernel|step_kernel)I(\w*?)EEv", m.group(1))
+        if k:
+            dtype = {"f": "f32 ", "d": "f64 "}.get(k.group(2)[:1], "f32 ")
+            flags = dict(zip(("x3", "sq") if k.group(1) == "step_kernel" else ("sq",),
+                             re.findall(r"Lb(\d)E", k.group(2))))
+            elems = re.findall(r"Li(\d+)E", k.group(2))
+            print(f"[2 ptxas] {k.group(1)} {dtype}"
+                  + " ".join(f"{f}={v}" for f, v in flags.items())
+                  + (f" elems={elems[0]}" if elems else "")
+                  + f": {m.group(5)} registers, spill stores {m.group(3)} B, spill "
+                  f"loads {m.group(4)} B, stack {m.group(2)} B")
+    if not built.log:
+        print("[2 ptxas] library reused, not rebuilt: no ptxas report")
 
 
 def phase_kernels(dev, card):
@@ -758,6 +784,54 @@ def phase_dss_kernels(dev, card):
     return rows
 
 
+def phase_depth_sweep(dev, card):
+    """The launch depths of the redesigned DSS kernels at production f32
+    (5400 x 72 x 10, rrearth 0.1 as the loops run), in us per step: K14 at 2
+    to 8 steps per launch in its precomposed forms (sq_x3 on the tensor
+    cores, sq exact), and the rowchain step (K16 at depth 1, K18 deeper) in
+    its four forms at depths 1, 2, 3, 4 and 8.  `dss_resident.DEPTH` and
+    `dss2d_rowchain.loop_depth` are set from these."""
+    import torch
+
+    import cdk_torch.kernels  # noqa: F401  (registers the variants)
+    from cdk_torch.core import registry
+    from cdk_torch.core.config import BiharmonicConfig, with_overrides
+    from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
+    from cdk_torch.kernels.biharmonic import dss_resident as dr
+    from cdk_torch.kernels.biharmonic import problem as bp
+    from cdk_torch.kernels.biharmonic.dss2d import torus_shape
+
+    t0 = time.perf_counter()
+    cfg = with_overrides(BiharmonicConfig(nelemd=5400, qsize=10, dtype="float32",
+                                          device_init=True), rrearth=0.1)
+    data = bp.init_data(cfg, dev)
+    q = bp.to_lane_layout(data.qtens)
+    ex, ey = torus_shape(cfg.nelemd)
+
+    def per_step(fn, depths):
+        return " / ".join(f"{timed_ms(lambda: fn(k), REPS) / k * 1e3:.1f}" for k in depths)
+
+    L, w, L2 = registry.get("biharmonic_dss", "fused_operator_bd8_resident_sq").fn(
+        cfg)["prepare"](data)
+    for prec, form in (("bf16x3", "sq_x3"), ("highest", "sq")):
+        us = per_step(lambda k: dr.dss_resident(L, w, q, k, prec, L2), range(2, 9))
+        print(f"[3 sweep] K14 {form} production f32, us per step at 2 / 3 / ... / 8 "
+              f"steps per launch: {us} [{card}]")
+    L, w, F = registry.get("biharmonic_dss2d", "fused_operator_rowchain_sq").fn(
+        cfg)["prepare"](data)
+    t = rc.rowchain_bridge_in(L, q, ex, ey)
+    for prec, sq, form in (("highest", False, "A.A"), ("bf16x3", False, "x3"),
+                           ("highest", True, "sq"), ("bf16x3", True, "sq_x3")):
+        op = F if sq else L
+        us = per_step(lambda k: rc.rowchain_step(op, w, t, ex, ey, k, prec, sq),
+                      (1, 2, 3, 4, 8))
+        print(f"[3 sweep] rowchain step {form} production f32, us per step at depth "
+              f"1 / 2 / 3 / 4 / 8: {us} [{card}]")
+    torch.cuda.synchronize()
+    del data, q, L, w, L2, F, t
+    print(f"[3 sweep] {time.perf_counter() - t0:.1f} s")
+
+
 def ring_cone_ops(e: int, ncol: int, k: int, prec: str) -> dict:
     """bound()'s operations for k steps of the d-carry ring chain
     A·D·(A²·D)^(k-1)·A whose e owned elements come out exact: each step
@@ -1190,6 +1264,7 @@ def main() -> int:
     rows.update(phase_fused_and_staged_kernels(dev, card))
     rows.update(phase_cke_kernels(dev, card))
     rows.update(phase_dss_kernels(dev, card))
+    phase_depth_sweep(dev, card)
     rows.update(phase_masked_kernels(dev, card))
     rows.update(phase_dist_dss_kernels(dev, card))
 
@@ -1331,9 +1406,13 @@ def main() -> int:
                           ("K25", "mpdata_masked_kloop_split", 605)):
         meta[k] = dict(name=name, source="cdk_torch/csrc/mpdata_masked.cu",
                        replaces=f"cdk_tpu/kernels/mpdata/pallas_masked.py:{line}")
+    # redesigned for Hopper after their port: the tensor-core bf16x3 forms
+    # and the rowchain step without the j-neighbours' recomputation
+    redesigned = {k: 7 for k in ("K14", "K14w", "K16", "K16p", "K18", "K18p")}
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
                     replaces=meta[k]["replaces"], launches=launches[k],
-                    **{"library_ms": None, **rows[k]})
+                    **{"library_ms": None, **rows[k]},
+                    **({"redesigned": redesigned[k]} if k in redesigned else {}))
                for k in sorted(meta, key=lambda k: (int(k[1:].rstrip("pw")), k))]
     if len(kernels) != 29:
         fail(f"{len(kernels)} kernels described, want all 29")

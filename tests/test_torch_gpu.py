@@ -1,11 +1,13 @@
 """Tests of the port that need the card: each hand-written kernel against
 its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
 K12, K13 at ragged shapes, K14, K19 and the rowchain kernels K15-K18 on
-small and odd rings and tori, K4, K5, the staged MPDATA kernel behind K6,
-K7 and K8, K9 and K10, the masked-global MPDATA kernel behind K20-K25, the
-window-fed K14 and the padded rowchain modes K16p-K18p of the decomposed
-DSS families), the shared-memory refusals, and the driver's and the dist
-forms' paths through the kernels.  They skip without a CUDA card.
+small and odd rings and tori (the tensor-core bf16x3 forms of K14 and the
+rowchain step also at ragged m-tiles and across the step's row tiles), K4,
+K5, the staged MPDATA kernel behind K6, K7 and K8, K9 and K10, the
+masked-global MPDATA kernel behind K20-K25, the window-fed K14 and the
+padded rowchain modes K16p-K18p of the decomposed DSS families), the
+shared-memory refusals, and the driver's and the dist forms' paths through
+the kernels.  They skip without a CUDA card.
 
 This file imports no jax, so it runs where the card is (no JAX there):
 
@@ -207,6 +209,9 @@ def _dss_operands(e, ncol, seed):
             torch.from_numpy(rng.standard_normal((e, 16, ncol))))
 
 
+# (dtype, precision, gate against the plain version): the bf16x3 forms of
+# K14 and the rowchain step run on the tensor cores, which sum a product's
+# 16 terms in their own order, so they are held to the gate, not bit for bit
 DSS_FORMS = [(torch.float64, "highest", 1e-13), (torch.float32, "highest", 1e-6),
              (torch.float32, "bf16x3", 5e-5)]
 
@@ -227,6 +232,33 @@ def test_dss_resident_kernel_matches_plain(cuda, e, ncol):
                 assert dres.dss_resident.launches == before + 1
                 ref = dres.dss_resident_plain(L, w, q, n, prec, L2)
                 assert rel_l2(out, ref) < gate, (dtype, prec, L2 is None, n)
+
+
+def _with_lo_parts(x):
+    """x (f32) with every value's bf16 lo part nonzero: a value that bf16
+    holds exactly is nudged by 2^-12 of itself."""
+    exact = x == x.to(torch.bfloat16).float()
+    x = torch.where(exact, x * (1 + 2.0 ** -12), x)
+    assert bool((x != x.to(torch.bfloat16).float()).all())
+    return x
+
+
+@pytest.mark.parametrize("ncol", [8, 16, 17, 33])
+def test_dss_resident_tensor_core_forms_match_plain(cuda, ncol):
+    """K14's bf16x3 forms (ring and precomposed) run on the tensor cores:
+    against the plain version at the bf16x3 gate, not bit for bit (the
+    tensor core sums a product's 16 terms in its own order), on an operator
+    and a field whose bf16 lo parts are nonzero everywhere, at ragged
+    16-column m-tiles (8, 17, 33) and every depth 0 to MAX_STEPS."""
+    L64, w64, q64 = _dss_operands(40, ncol, ncol)
+    L, q = (_with_lo_parts(x.to(cuda, torch.float32)) for x in (L64, q64))
+    w = w64.to(cuda, torch.float32)
+    for L2 in (None, precompose_operator(L)):
+        for n in range(dres.MAX_STEPS + 1):
+            out = dres.dss_resident(L, w, q, n, "bf16x3", L2)
+            ref = dres.dss_resident_plain(L, w, q, n, "bf16x3", L2)
+            assert float(ref.abs().max()) > 0
+            assert rel_l2(out, ref) < 5e-5, (L2 is None, n)
 
 
 @pytest.mark.parametrize("exy,ncol", [((4, 4), 40), ((4, 3), 8), ((16, 10), 33),
@@ -284,6 +316,30 @@ def test_rowchain_kernels_match_plain(cuda, exy, ncol):
                 assert rel_l2(deep, ref) < gate, (dtype, prec, sq, k)
                 one = rc.rowchain_step(F, w, one, ex, ey, 1, prec, sq)
                 assert torch.equal(deep, one), (dtype, prec, sq, k)
+
+
+@pytest.mark.parametrize("ey", [rc.STEP_ELEMS - 1, rc.STEP_ELEMS + 1,
+                                2 * rc.STEP_ELEMS + 3])
+def test_rowchain_step_straddles_its_tiles(cuda, ey):
+    """The step's tiles hold STEP_ELEMS elements of one row and a halo
+    element on each side: rows one element short of a tile, one over, and
+    two tiles and three, on a 3-row torus, all four forms (bf16x3 on the
+    tensor cores, held to the gate; exact) against the plain version at
+    depths 1 and 3, each depth-3 step bitwise three depth-1 launches."""
+    ex = 3
+    L64, w64, t64 = _dss_operands(ex * ey, 40, ey)
+    for dtype, prec, gate in DSS_FORMS:
+        L, w, t = (x.to(cuda, dtype) for x in (L64, w64, t64))
+        for sq in (False, True):
+            F = precompose_operator(L) if sq else L
+            one = t
+            for _ in range(3):
+                one = rc.rowchain_step(F, w, one, ex, ey, 1, prec, sq)
+            for k, got in ((1, rc.rowchain_step(F, w, t, ex, ey, 1, prec, sq)),
+                           (3, rc.rowchain_step(F, w, t, ex, ey, 3, prec, sq))):
+                ref = rc.rowchain_step_plain(F, w, t, ex, ey, k, prec, sq)
+                assert rel_l2(got, ref) < gate, (dtype, prec, sq, k)
+            assert torch.equal(got, one), (dtype, prec, sq)
 
 
 @pytest.mark.parametrize("kernel,nelemd", [("biharmonic_dss", 16),
