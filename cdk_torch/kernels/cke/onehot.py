@@ -1,5 +1,5 @@
-"""K12: the CKE edge flux as a one-hot connectivity product with the
-one-hot weights built on chip per (edge tile, cell block).
+"""K12: the CKE edge flux as a one-hot connectivity product, computed on
+the card over the cells each edge names.
 
 Replaces cdk_tpu/kernels/cke/pallas_onehot.py::_kernel under the same
 variant names:
@@ -8,13 +8,17 @@ variant names:
   pallas_onehot_bf16  weights and table rounded to bf16, f32 accumulation
                       (the TPU's default-precision pass; f32 only)
 
-The CUDA kernel is csrc/cke_onehot.cu.  Beside it here: `cke_onehot_plain`,
-the same one-hot product in plain PyTorch (dense connectivity matrices
-built by scatter-add, then `torch.matmul` in full f32: the CPU path, and
-what the card's kernel is compared with), and the wrapper `cke_onehot`,
-which launches the kernel for CUDA tensors and runs the plain version for
-CPU tensors.  Both sum in cell order, not slot order, so they agree with
-each other and with the reference at the family gate, not bitwise.
+The CUDA kernel is csrc/cke_onehot.cu: one warp per edge merges the edge's
+slots into its distinct cells (each weight summed in slot order, as the
+one-hot matrix holds it) and accumulates weight times tracer row over them
+in ascending cell order, the dense product's order without its zero
+terms.  Beside it here: `cke_onehot_plain`, the same one-hot product in
+plain PyTorch (dense connectivity matrices built by scatter-add, then
+`torch.matmul` in full f32: the CPU path, and what the card's kernel is
+compared with), and the wrapper `cke_onehot`, which launches the kernel
+for CUDA tensors and runs the plain version for CPU tensors.  Both sum in
+cell order, not slot order, so they agree with each other and with the
+reference at the family gate, not bitwise.
 """
 
 from __future__ import annotations
@@ -88,9 +92,10 @@ def _make_pallas(cfg, bf16: bool):
 @register(
     "cke",
     "pallas_onehot",
-    "fused one-hot kernel: per-(edge tile, cell block) connectivity weights "
-    "built in shared memory by a slot-order scatter, times the staged "
-    "masked-tracer block, accumulated across cell blocks in registers",
+    "fused one-hot kernel: each edge's connectivity weights merged on chip "
+    "in slot order, times the masked-tracer rows of the cells it names, "
+    "accumulated in ascending cell order (the one-hot product without its "
+    "zero terms)",
 )
 def make_pallas_onehot(cfg):
     return _make_pallas(cfg, bf16=False)

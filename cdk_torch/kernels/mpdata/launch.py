@@ -3,9 +3,12 @@ in its hoisted form (K2, K9; see resident.py) and its staged form (K6, K7,
 K8; see staged.py), and csrc/mpdata_masked.cu, the masked-global step
 (K20-K25; see masked.py).  The ctypes entry points, the shared-memory
 refusal and the launch count every wrapper of both sources uses
-(`require_smem`, `counted`), the checks of the resident/staged wrappers,
-`step_kernel`, which makes such a wrapper, and `resident_forms`, the
-registry forms of an n-steps-per-launch variant.
+(`require_smem`, `counted`), the checks of the resident/staged wrappers
+(the hoisted form holds a slice in one block's shared memory; the staged
+form, a warp's x sweep, holds any nx and at most
+`cdk_mpdata_staged_max_levels()` levels), `step_kernel`, which makes such a
+wrapper, and `resident_forms`, the registry forms of an n-steps-per-launch
+variant.
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.cdk_mpdata_resident_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.cdk_mpdata_resident_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.cdk_mpdata_resident_smem_bytes.restype = ctypes.c_longlong
+    lib.cdk_mpdata_staged_max_levels.argtypes = []
+    lib.cdk_mpdata_staged_max_levels.restype = ctypes.c_int
     lib.cdk_mpdata_masked_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.cdk_mpdata_masked_smem_bytes.restype = ctypes.c_longlong
     lib.cdk_max_shared_optin.argtypes = [ctypes.c_int]
@@ -94,9 +99,12 @@ def _launch(f, u, w, rho, rhow, adz, flux, n, hoist):
     s, xf, nzm = f.shape
     nx = xf - 6
     lib = _lib()
-    require_smem(lib.cdk_mpdata_resident_smem_bytes(nx, nzm, f.element_size(),
-                                                    int(hoist)),
-                 f.device, f"one slice (nx={nx}, nzm={nzm}, {f.dtype})")
+    if hoist:
+        require_smem(lib.cdk_mpdata_resident_smem_bytes(nx, nzm, f.element_size()),
+                     f.device, f"one slice (nx={nx}, nzm={nzm}, {f.dtype})")
+    elif nzm > (most := lib.cdk_mpdata_staged_max_levels()):
+        raise UnsupportedConfigError(
+            f"the staged step takes at most {most} levels a slice (nzm={nzm})")
     f_out = torch.empty_like(f)
     flux_out = torch.empty_like(flux)
     stream = torch.cuda.current_stream(f.device).cuda_stream

@@ -14,12 +14,16 @@ and loop placement:
 The layouts are TPU machinery (lane packing, z segments, clamp masks, the
 kspan input, the slice padding and the even-slice and nz <= 64 guards) and
 are not ported.  All three run the staged form of csrc/mpdata_resident.cu
-(one block per slice, the slice in shared memory, the antidiffusive
+(one warp per slice sweeping it along x with the levels across its lanes,
+every stage a fixed lag behind the rows it reads, in registers; below 1024
+slices a slice's x range split among 2 or 4 warps; the antidiffusive
 velocities computed each step in the reference's operation order), through
-wrappers with their own launch counts: `advect_fused` (K6),
-`advect_packed` (K7) and `advect_staged_resident` (K8).  The kernel takes
-any geometry whose slice fits one block's shared memory and raises
-UnsupportedConfigError past it.
+wrappers with their own launch counts: `advect_fused`
+(K6), `advect_packed` (K7) and `advect_staged_resident` (K8).  The kernel
+takes any nx and up to 256 levels (nzm) and raises UnsupportedConfigError
+past that.  Every arithmetic operation rounds as the plain version's, so f
+matches it bit for bit at f32 and f64; the flux column sums run in x
+order, not torch.sum's.
 
 `pallas_packed_bf16` casts the fields to bfloat16 on entry and the outputs
 back on exit, as the JAX form does; the kernel stores every value in bf16
@@ -66,9 +70,10 @@ def _invariants(data: MpdataData, dtype):
 @register(
     "mpdata",
     "pallas_fused",
-    "single fused kernel: all 7 MPDATA stages of one step in shared memory "
-    "per slice; the analog of the reference openacc variants "
-    "(advect_scalar2D…F90:72-474) without openacc_2's fusion bug",
+    "single fused kernel: all 7 MPDATA stages of one step in one x sweep "
+    "per slice, the stage rows in registers; the analog of the reference "
+    "openacc variants (advect_scalar2D…F90:72-474) without openacc_2's "
+    "fusion bug",
 )
 def make_pallas_fused(cfg):
     def step(data: MpdataData):
@@ -128,9 +133,10 @@ def make_pallas_packed_bf16(cfg):
 @register(
     "mpdata",
     "pallas_resident",
-    "staged step kernel with the n-step time loop inside the kernel: each "
-    "slice is read once and iterated in shared memory (u/w/aux read once "
-    "per run, not once per step); same stage-exact math as pallas_packed",
+    "staged step kernel with the n-step time loop inside the kernel: one "
+    "launch sweeps each slice n times (the per-level fields derived once "
+    "per run, f carried in the output between steps); same stage-exact "
+    "math as pallas_packed",
 )
 def make_pallas_resident(cfg):
     return resident_forms(advect_staged_resident)

@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (cdk_torch) on one Hopper card.
 
     python3 chip_smoke.py        # from the repository root; needs one sm_90 card
+    python3 chip_smoke.py --times OUT [--against REF]
 
 Phases, each printing its result; the first failure exits non-zero:
 
   1. device   require CUDA and compute capability 9.0; print the card's
               name and power limit (nvidia-smi)
   2. build    compile cdk_torch/csrc/*.cu with nvcc (sm_90a); print ptxas's
-              registers and spills of K14's bf16x3 ring kernel and the
-              rowchain step kernel (the tensor-core redesigns)
+              registers and spills of the kernels redesigned for Hopper:
+              K14's bf16x3 ring kernel, the rowchain step kernel, the
+              staged MPDATA sweep (K6-K8) and K12
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes (shipped and production),
               f32 and f64, with the family's gate; both timed with CUDA
@@ -19,11 +21,13 @@ Phases, each printing its result; the first failure exits non-zero:
               where one PyTorch call computes the same function, that
               call's time.  K1/K2 at n = 1 and 4 steps; K4 (both
               precisions), K5, the staged MPDATA kernel (K6 and K7 at one
-              step, K8 at 4 in one launch, and the bf16 form), K9 and K10
-              at shipped f32/f64 and production f32; the CKE kernels K3, K11,
-              K12 (and its bf16 form) and K13 at the shipped 25600 x 2800 x
-              100, and K3 and K13 also at the production 256000 x 28000 x
-              100; K14 (four forms), K19 (two forms) and the rowchain's
+              step, K8 at 4 in one launch, and the bf16 form; K8 bitwise
+              equal to four K6 launches), K9 and K10 at shipped f32/f64 and
+              production f32; the CKE kernels K3, K11, K12 (and its bf16
+              form; beside it torch.matmul of the prebuilt [A1; A3], f32
+              and f64) and K13 at the shipped 25600 x 2800 x 100, and K3
+              and K13 also at the production 256000 x 28000 x 100; K14
+              (four forms), K19 (two forms) and the rowchain's
               K15, K17 and step (K16 at depth 1, K18 deeper) at the
               shipped 16 x 72 x 40 (f32 and f64) and the production
               5400 x 72 x 10 (f32): one launch of each at the real radius,
@@ -70,10 +74,22 @@ Phases, each printing its result; the first failure exits non-zero:
               kstep-4 loops timed at production f32 on 1 shard
   6. counts   every kernel's launch counter rose during phase 4 (K1-K19)
               or phase 5 (K2, K20-K25, K14w, K16p-K18p), each counted from
-              zero
+              zero, and each split by the size of the work that made it:
+              shipped (the miniapps' sizes, and the `scaling` sweeps' small
+              defaults) and production
 
-Then the total wall time, one JSON line describing the kernels, and as the
-last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
+Then the total wall time, the rows of PERF.md's kernel table, one JSON line
+describing the kernels, and as the last line {"ok": true, "device": {...}}.
+It imports nothing of JAX.
+
+--times OUT runs phases 1 and 2 and then times K12 (at the shipped size,
+f32, f64 and bf16) and the staged MPDATA kernel (at production, f32, f64 and
+bf16, K6 and K7 one step and K8 four), with K2/K9 beside them,
+and saves their outputs to OUT; --against REF then holds K12's, K2's and
+K9's outputs bitwise equal to those a run of another tree saved in REF.
+Run against an older tree's package, it measures that tree:
+
+    PYTHONSAFEPATH=1 PYTHONPATH=OLD python3 chip_smoke.py --times OUT
 """
 
 from __future__ import annotations
@@ -100,6 +116,40 @@ APPLY, RING_DSS, TORUS_DSS, I_PASS, J_PASS = 512, 24, 32, 24, 8
 # sum of the three partial results (2 per output); the operator's split,
 # once per element per launch, is left out (about 1 per element-column)
 X3_BF16, X3_F32 = 3 * APPLY, 16 * 3 + 16 * 2
+
+
+# for PERF.md's table: the change that ported each kernel and, for those
+# redesigned for Hopper since, the change that did and the ms per launch the
+# table held before it
+PORTED = {**dict.fromkeys(("K1", "K2"), 1), **dict.fromkeys(("K3", "K11", "K12", "K13"), 2),
+          **dict.fromkeys(("K14", "K15", "K16", "K17", "K18", "K19"), 3),
+          **dict.fromkeys(("K4", "K5", "K6", "K7", "K8", "K9", "K10"), 4),
+          **dict.fromkeys(("K20", "K21", "K22", "K23", "K24", "K25"), 5),
+          **dict.fromkeys(("K14w", "K16p", "K17p", "K18p"), 6)}
+REDESIGNED = {"K14": (7, 1.6638), "K14w": (7, 3.8402), "K16": (7, 0.5580),
+              "K16p": (7, 0.5633), "K18": (7, 1.3699), "K18p": (7, 2.3751),
+              "K6": (8, 0.5603), "K7": (8, 0.5615), "K8": (8, 1.8192),
+              "K12": (8, 2.0123)}
+
+
+def table_row(k: str, row: dict) -> str:
+    """The kernel's row of PERF.md's table, from its JSON description."""
+    status = f"ported PR {PORTED[k]}"
+    ms = f"{row['ms']:.4f}"
+    if k in REDESIGNED:
+        pr, before = REDESIGNED[k]
+        status = f"redesigned PR {pr} ({status})"
+        ms += f" (PR {pr - 1}: {before:.4f})"
+    lib = "none"
+    if row["library_ms"] is not None:
+        lib = f"{row['library_ms']:.4f} (`{row['library']}`)"
+    if "ms_f64" in row:
+        ms += f"; f64 {row['ms_f64']:.4f}"
+        lib += f"; f64 {row['library_ms_f64']:.4f}"
+    return (f"| {k} | `{row['replaces'].removeprefix('cdk_tpu/kernels/')}` | {status} | "
+            f"CUDA → `{row['source'].removeprefix('cdk_torch/')}` ({row['name']}) | {ms} | "
+            f"{row['launches_shipped']} / {row['launches_production']} | "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) | {row['plain_ms']:.4f} | {lib} |")
 
 
 def fail(msg: str) -> None:
@@ -234,20 +284,27 @@ def phase_build():
     built = build.build()
     print(f"[2 build] {built.path.name}: nvcc {built.seconds:.1f} s")
     print(built.log.strip(), file=sys.stderr)
-    # ptxas's registers and spills of the kernels redesigned for the tensor
-    # cores (K14's bf16x3 ring, the rowchain step)
+    # ptxas's registers and spills of the kernels redesigned for Hopper:
+    # K14's bf16x3 ring and the rowchain step (tensor cores), the staged
+    # MPDATA sweep (L levels a lane) and K12
+    flag_names = {"step_kernel": ("x3", "sq"), "dss_ring_x3_kernel": ("sq",),
+                  "cke_onehot_kernel": ("bf16",), "mpdata_sweep_kernel": ("split",)}
     for m in re.finditer(r"Function properties for (\S+)\n\s+(\d+) bytes stack frame, "
                          r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
                          r"(\d+) registers", built.log):
-        k = re.search(r"(dss_ring_x3_kernel|step_kernel)I(\w*?)EEv", m.group(1))
+        k = re.search(r"(dss_ring_x3_kernel|step_kernel|mpdata_sweep_kernel|"
+                      r"cke_onehot_kernel)I(\w*?)EEv", m.group(1))
         if k:
-            dtype = {"f": "f32 ", "d": "f64 "}.get(k.group(2)[:1], "f32 ")
-            flags = dict(zip(("x3", "sq") if k.group(1) == "step_kernel" else ("sq",),
-                             re.findall(r"Lb(\d)E", k.group(2))))
-            elems = re.findall(r"Li(\d+)E", k.group(2))
+            args = k.group(2)
+            dtype = ("bf16 " if args.startswith("13__nv_bfloat16")
+                     else {"f": "f32 ", "d": "f64 "}.get(args[:1], "f32 "))
+            flags = dict(zip(flag_names.get(k.group(1), ()),
+                             re.findall(r"Lb(\d)E", args + "E")))
+            ints = re.findall(r"Li(\d+)E", args + "E")
+            name = "L" if k.group(1) == "mpdata_sweep_kernel" else "elems"
             print(f"[2 ptxas] {k.group(1)} {dtype}"
                   + " ".join(f"{f}={v}" for f, v in flags.items())
-                  + (f" elems={elems[0]}" if elems else "")
+                  + (f" {name}={ints[0]}" if ints else "")
                   + f": {m.group(5)} registers, spill stores {m.group(3)} B, spill "
                   f"loads {m.group(4)} B, stack {m.group(2)} B")
     if not built.log:
@@ -309,7 +366,7 @@ def phase_kernels(dev, card):
                     cols = q.numel() / 16  # element-columns
                     rows["K1"] = dict(
                         max_abs_err=mae, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms,
+                        library_ms=lib_ms, library="torch.bmm",
                         **bound((L, q, out), **apply_ops(cols, prec, 1)))
                     # a long chain reads and writes q once, so its steps
                     # are bound by their operations alone
@@ -399,14 +456,15 @@ def phase_fused_and_staged_kernels(dev, card):
         refs = ref if isinstance(ref, tuple) else (ref,)
         norm = "l1" if isinstance(out, tuple) else "l2"
         errs = [errors(o, r, norm) for o, r in zip(outs, refs)]
+        same = "/".join(str(torch.equal(o, r)) for o, r in zip(outs, refs))
         ms = timed_ms(kernel, REPS)
         plain_ms = timed_ms(plain, REPS)
         mae = max(e[1] for e in errs)
         print(f"[3 {tag}] {what}: rel_{norm} "
               f"{' / '.join(f'{e[0]:.3e}' for e in errs)} (gate "
               f"{' / '.join(f'{g:g}' for g in gates)}) max_abs {mae:.3e} of "
-              f"{max(e[2] for e in errs):.3e}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms [{card}]")
+              f"{max(e[2] for e in errs):.3e} bitwise={same}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms [{card}]")
         if not all(e[0] < g and e[2] > 0 and bool(torch.isfinite(o).all())
                    for e, g, o in zip(errs, gates, outs)):
             fail(f"{tag} {what}: {[e[0] for e in errs]}")
@@ -434,7 +492,7 @@ def phase_fused_and_staged_kernels(dev, card):
             # the prebuilt operator): one exact batched product
             lib_ms = timed_ms(lambda: torch.bmm(L, q), REPS)
             if label == "production":
-                rows["K5"] = dict(row, library_ms=lib_ms,
+                rows["K5"] = dict(row, library_ms=lib_ms, library="torch.bmm",
                                   **bound((L, q, out), cols * APPLY))
             elem = pack_element_fields(data.dinv, data.spheremp, data.tensorvisc)
             dvv = data.dvv.contiguous()
@@ -448,7 +506,8 @@ def phase_fused_and_staged_kernels(dev, card):
                     lambda: fused_laplace(dvv, elem, q, rr, prec),
                     lambda: fused_laplace_plain(dvv, elem, q, rr, prec))
                 if (label, prec) == ("production", "highest"):
-                    rows["K4"] = dict(row, library_ms=lib_ms, **bound(
+                    rows["K4"] = dict(row, library_ms=lib_ms,
+                                      library="torch.bmm, prebuilt L", **bound(
                         (dvv, elem, q, out), cols * 896))
             print(f"[3 K4/K5] {shape}: torch.bmm with the prebuilt operator "
                   f"{lib_ms:.4f} ms [{card}]")
@@ -481,6 +540,16 @@ def phase_fused_and_staged_kernels(dev, card):
                 if label == "production" and kind == "float32":
                     rows[tag] = dict(row, **bound(
                         a + outs, mpdata_ops(cfg.nslices, cfg.nx, cfg.nzm, n, False)))
+                if tag == "K8":  # n steps in one launch = n one-step launches
+                    f, flux = a[0], a[6]
+                    for _ in range(n):
+                        f, flux = staged.advect_fused(f, *a[1:6], flux, 1)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(outs[0], f) and torch.equal(outs[1], flux)):
+                        fail(f"K8 {shape} {kind}: {n} steps in one launch differ "
+                             f"from {n} one-step launches")
+                    print(f"[3 K8=K6] {shape} {kind}: {n} steps in one launch "
+                          f"bitwise equal to {n} one-step launches")
             outs, row = check(
                 "K9", f"{shape} {dtype:8s} advect_hoisted_resident n=1",
                 mgates[dtype], lambda: advect_hoisted_resident(*args, 1),
@@ -507,12 +576,14 @@ def phase_cke_kernels(dev, card):
 
     from cdk_torch.core.config import CkeConfig
     from cdk_torch.core.norms import pointwise_check
+    from cdk_torch.core.platform import exact_fp32
     from cdk_torch.kernels.cke import problem as cp
     from cdk_torch.kernels.cke.lanegather import (
         cke_lanegather,
         cke_lanegather_plain,
     )
     from cdk_torch.kernels.cke.onehot import cke_onehot, cke_onehot_plain
+    from cdk_torch.kernels.cke.onehot_mxu import build_connectivity_matrices
     from cdk_torch.kernels.cke.reference import coef3_of, fsign1
     from cdk_torch.kernels.cke.rows import cke_rows, cke_rows_plain
     from cdk_torch.kernels.cke.staged import (
@@ -585,6 +656,23 @@ def phase_cke_kernels(dev, card):
                 if not ok:
                     fail(f"{name} {label} {dtype}: {measure} {err:.3e}")
                 key = name.split()[0]
+                if name == "K12":
+                    # the library call: one exact product of the stacked
+                    # prebuilt connectivity matrices [A1; A3] by the table
+                    exact_fp32()
+                    a13 = torch.cat(build_connectivity_matrices(
+                        d.adv_cells, *edge, cfg.ncells))
+                    lib_ms = timed_ms(lambda: torch.matmul(a13, t), REPS)
+                    del a13
+                    print(f"[3 K12] {label:10s} {dtype:7s}: torch.matmul of the "
+                          f"prebuilt [A1; A3] {lib_ms:.4f} ms, kernel {ms:.4f} ms "
+                          f"({ms / lib_ms:.4f} of it) [{card}]")
+                    if dtype == "float64":
+                        rows["K12"].update(ms_f64=ms, plain_ms_f64=plain_ms,
+                                           library_ms_f64=lib_ms)
+                    else:
+                        lib = dict(library_ms=lib_ms, library="torch.matmul, "
+                                   "prebuilt [A1; A3]")
                 if ((key in ("K3", "K13") and label == "production")
                         or (key in ("K11", "K12") and name == key
                             and dtype == "float32")):
@@ -596,6 +684,7 @@ def phase_cke_kernels(dev, card):
                         inputs = (d.adv_cells, *edge, t, *ef)
                     rows[key] = dict(
                         max_abs_err=mae, ms=ms, plain_ms=plain_ms,
+                        **(lib if key == "K12" else {}),
                         **bound(inputs + (out,),
                                 cke_ops(cfg.nedges, cfg.nvertlevels, cfg.nadv)))
                 del out, ref
@@ -1103,7 +1192,26 @@ def phase_masked_kernels(dev, card):
     return rows
 
 
-def phase_main(dev, card):
+class SizeLedger:
+    """Kernel launches charged to the size of the work that made them:
+    `read()` gives every kernel's count so far, and `charge(size)` books
+    what it rose by since the last charge under "shipped" or
+    "production"."""
+
+    def __init__(self, read):
+        self.read = read
+        self.last = read()
+        self.by = {"shipped": dict.fromkeys(self.last, 0),
+                   "production": dict.fromkeys(self.last, 0)}
+
+    def charge(self, size: str) -> None:
+        now = self.read()
+        for k, n in now.items():
+            self.by[size][k] += n - self.last[k]
+        self.last = now
+
+
+def phase_main(dev, card, ledger: SizeLedger):
     import cdk_torch.kernels  # noqa: F401  (registers the variants)
     from cdk_torch.core import registry
     from cdk_torch.core.config import (
@@ -1157,9 +1265,10 @@ def phase_main(dev, card):
                   f"[{card}] ({wall:.1f} s leg)")
             if not r.ok:
                 fail(f"{kernel} {label} {r.variant}: {r.metrics} {r.note}")
+        ledger.charge(label.split()[0])
 
 
-def phase_dist(dev, card):
+def phase_dist(dev, card, ledger: SizeLedger):
     """The decomposed MPDATA and DSS paths on a mesh of shards on the card."""
     import torch
 
@@ -1183,6 +1292,7 @@ def phase_dist(dev, card):
               f"(tol {r.tol:g}) [{card}]")
         if not r.ok:
             fail(f"dist leg {r.family}: err {r.err} {r.note}")
+    ledger.charge("production")
     print(f"[5 dist] legs {time.perf_counter() - t0:.1f} s")
     for family in ("mpdata", "biharmonic"):
         t1 = time.perf_counter()
@@ -1190,6 +1300,7 @@ def phase_dist(dev, card):
                        "--kstep", "4"])
         if rc != 0:
             fail(f"scaling {family} exited {rc}")
+        ledger.charge("shipped")  # the sweeps' small defaults
         print(f"[5 dist] scaling {family} {time.perf_counter() - t1:.1f} s")
 
     # the row-sharded rowchain at production f32 on 3 shards: the serial
@@ -1254,12 +1365,98 @@ def phase_dist(dev, card):
     print(f"[5 dist] production f32 1 shard, 16 steps: per-step loop (K23) "
           f"{per_step[1]:.3f} us/step, kstep-4 loop (K25) {per_step[4]:.3f} "
           f"us/step, ratio {per_step[4] / per_step[1]:.4f} [{card}]")
+    ledger.charge("production")
+
+
+def phase_times(dev, card, out: str, against: str | None) -> None:
+    """--times: K12 and the staged MPDATA kernel, timed in the tree whose
+    cdk_torch this imports (K12 at the shipped size in f32, f64 and bf16;
+    the staged kernel at production in f32, f64 and bf16, K6 and K7 one step
+    and K8 four), K2/K9 beside them; their outputs saved to `out`, and with
+    `against` K12's (also with duplicate slots), K2's and K9's held bitwise
+    equal to those saved there."""
+    import torch
+
+    from cdk_torch.core.config import CkeConfig, MpdataConfig
+    from cdk_torch.kernels.cke import problem as cp
+    from cdk_torch.kernels.cke.onehot import cke_onehot
+    from cdk_torch.kernels.cke.reference import coef3_of
+    from cdk_torch.kernels.mpdata import problem as mp
+    from cdk_torch.kernels.mpdata import staged
+    from cdk_torch.kernels.mpdata.resident import (
+        advect_hoisted_resident,
+        advect_resident,
+    )
+
+    times, outs = {}, {}
+    for dtype in ("float32", "float64"):
+        cfg = CkeConfig(dtype=dtype, device_init=True)
+        d = cp.init_data(cfg, dev)
+        args = (d.adv_cells, d.adv_coefs, d.adv_coefs3, d.tracer * d.cell_mask,
+                d.ntf, d.adv_mask, coef3_of(cfg))
+        dup = d.adv_cells.clone()  # slots 0-1 and 2-4 name one cell each
+        dup[:, 1], dup[:, 3], dup[:, 4] = dup[:, 0], dup[:, 2], dup[:, 2]
+        for bf16 in (False, True) if dtype == "float32" else (False,):
+            key = f"K12 shipped {dtype}{' bf16' if bf16 else ''}"
+            outs[key] = cke_onehot(*args, bf16)
+            outs[key + " duplicates"] = cke_onehot(dup, *args[1:], bf16)
+            times[key] = timed_ms(lambda: cke_onehot(*args, bf16), REPS)
+        del d, args, dup
+    for kind in ("float32", "float64", "bfloat16"):
+        cfg = MpdataConfig(nslices=8192, device_init=True,
+                           dtype="float64" if kind == "float64" else "float32")
+        d = mp.init_data(cfg, dev)
+        a = tuple(x.to(torch.bfloat16) if kind == "bfloat16" else x
+                  for x in (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux))
+        for tag, wrapper, n in (("K6", staged.advect_fused, 1),
+                                ("K7", staged.advect_packed, 1),
+                                ("K8", staged.advect_staged_resident, 4)):
+            key = f"{tag} production {kind} n={n}"
+            outs[key] = wrapper(*a, n)
+            times[key] = timed_ms(lambda: wrapper(*a, n), REPS)
+        if kind != "bfloat16":
+            for tag, wrapper in (("K2", advect_resident), ("K9", advect_hoisted_resident)):
+                for n in (1, 4):
+                    outs[f"{tag} production {kind} n={n}"] = wrapper(*a, n)
+            times[f"K2 production {kind} n=1"] = timed_ms(lambda: advect_resident(*a, 1),
+                                                         REPS)
+        del d, a
+    torch.cuda.synchronize()
+    saved = {k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else (v.cpu(),)
+             for k, v in outs.items()}
+    torch.save(saved, out)
+    for k, ms in times.items():
+        print(f"[times] {k}: {ms:.4f} ms [{card}]")
+    if against is None:
+        return
+    ref = torch.load(against)
+    differ = []
+    for k, got in saved.items():
+        same = all(torch.equal(x, y) for x, y in zip(got, ref[k]))
+        diff = max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(got, ref[k]))
+        print(f"[times] {k} against {against}: bitwise={same}, max_abs_diff {diff:.3e}")
+        if not same and k.split()[0] in ("K12", "K2", "K9"):
+            differ.append(k)
+    if differ:
+        fail(f"outputs that must be bitwise equal to {against} differ: {differ}")
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--times", metavar="OUT", help="phases 1-2, then time K12 and "
+                    "the staged MPDATA kernel and save their outputs to OUT")
+    ap.add_argument("--against", metavar="REF", help="with --times: hold K12, K2 "
+                    "and K9 bitwise equal to the outputs saved in REF")
+    opts = ap.parse_args()
     t0 = time.perf_counter()
     dev, card = phase_device()
     phase_build()
+    if opts.times:
+        phase_times(dev, card, opts.times, opts.against)
+        return 0
     rows = phase_kernels(dev, card)
     rows.update(phase_fused_and_staged_kernels(dev, card))
     rows.update(phase_cke_kernels(dev, card))
@@ -1298,18 +1495,23 @@ def main() -> int:
                 "K11": cke_staged, "K12": cke_onehot, "K13": cke_lanegather,
                 "K14": dss_resident, "K15": rc.rowchain_bridge_in,
                 "K17": rc.rowchain_bridge_out, "K19": dss2d_resident}
+    def counts(wrappers, step, one, deep):
+        """Each wrapper's launches, and the rowchain step's (`step`) split
+        by depth: `one` at depth 1, `deep` the same kernel deeper."""
+        depths = step.depth_launches
+        if sum(depths.values()) != step.launches:
+            fail(f"step launches {step.launches} != by depth {depths}")
+        return {**{k: w.launches for k, w in wrappers.items()},
+                one: depths.get(1, 0),
+                deep: sum(n for k, n in depths.items() if k > 1)}
+
     for w in wrappers.values():
         w.launches = 0
     rc.rowchain_step.launches = 0
     rc.rowchain_step.depth_launches = {}
-    phase_main(dev, card)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    # K16 is the step at depth 1, K18 the same kernel at a depth above 1
-    depths = rc.rowchain_step.depth_launches
-    launches["K16"] = depths.get(1, 0)
-    launches["K18"] = sum(n for k, n in depths.items() if k > 1)
-    if launches["K16"] + launches["K18"] != rc.rowchain_step.launches:
-        fail(f"step launches {rc.rowchain_step.launches} != by depth {depths}")
+    main_ledger = SizeLedger(lambda: counts(wrappers, rc.rowchain_step, "K16", "K18"))
+    phase_main(dev, card, main_ledger)
+    launches = main_ledger.read()
 
     dist_wrappers = {"K2": advect_resident,
                      "K20": masked.masked_step_pallas,
@@ -1324,21 +1526,21 @@ def main() -> int:
         w.launches = 0
     rc.rowchain_step_padded.launches = 0
     rc.rowchain_step_padded.depth_launches = {}
-    phase_dist(dev, card)
-    dist_launches = {k: w.launches for k, w in dist_wrappers.items()}
-    # K16p is the padded step at depth 1, K18p the same kernel deeper
-    depths = rc.rowchain_step_padded.depth_launches
-    dist_launches["K16p"] = depths.get(1, 0)
-    dist_launches["K18p"] = sum(n for k, n in depths.items() if k > 1)
-    if dist_launches["K16p"] + dist_launches["K18p"] != rc.rowchain_step_padded.launches:
-        fail(f"padded step launches {rc.rowchain_step_padded.launches} != by "
-             f"depth {depths}")
+    dist_ledger = SizeLedger(
+        lambda: counts(dist_wrappers, rc.rowchain_step_padded, "K16p", "K18p"))
+    phase_dist(dev, card, dist_ledger)
+    dist_launches = dist_ledger.read()
     print(f"[6 counts] kernel launches during the main path: {launches}; "
           f"during the dist path: {dist_launches}")
     for k, n in list(launches.items()) + list(dist_launches.items()):
         if n <= 0:
             fail(f"{k} was never launched by its path")
+    # the main path's K2, and each dist kernel's own path
+    by_size = {size: {**{k: n for k, n in dist_ledger.by[size].items() if k != "K2"},
+                      **main_ledger.by[size]} for size in ("shipped", "production")}
     launches.update({k: n for k, n in dist_launches.items() if k != "K2"})
+    print(f"[6 counts] at shipped sizes: {by_size['shipped']}; at production: "
+          f"{by_size['production']}")
 
     import torch
 
@@ -1406,17 +1608,18 @@ def main() -> int:
                           ("K25", "mpdata_masked_kloop_split", 605)):
         meta[k] = dict(name=name, source="cdk_torch/csrc/mpdata_masked.cu",
                        replaces=f"cdk_tpu/kernels/mpdata/pallas_masked.py:{line}")
-    # redesigned for Hopper after their port: the tensor-core bf16x3 forms
-    # and the rowchain step without the j-neighbours' recomputation
-    redesigned = {k: 7 for k in ("K14", "K14w", "K16", "K16p", "K18", "K18p")}
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
                     replaces=meta[k]["replaces"], launches=launches[k],
+                    launches_shipped=by_size["shipped"][k],
+                    launches_production=by_size["production"][k],
                     **{"library_ms": None, **rows[k]},
-                    **({"redesigned": redesigned[k]} if k in redesigned else {}))
+                    **({"redesigned": REDESIGNED[k][0]} if k in REDESIGNED else {}))
                for k in sorted(meta, key=lambda k: (int(k[1:].rstrip("pw")), k))]
     if len(kernels) != 29:
         fail(f"{len(kernels)} kernels described, want all 29")
     print(f"[7 wall] {time.perf_counter() - t0:.1f} s, build included")
+    for k, row in zip(sorted(meta, key=lambda k: (int(k[1:].rstrip("pw")), k)), kernels):
+        print(f"[7 table] {table_row(k, row)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

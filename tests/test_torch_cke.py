@@ -231,7 +231,7 @@ def test_duplicate_cells_accumulate(variant):
 @pytest.mark.parametrize("size", ["ragged", "multigroup"])
 def test_kernel_variants_take_ragged_shapes(variant, size):
     """130 and 300 edges, 21 levels (no multiple of 8 or 128 anywhere),
-    700 cells (22 of K12's 32-cell blocks on the card)."""
+    700 cells."""
     cfg = _cfg(size)
     t, j = _data(size)
     out = _port_out(variant, cfg, t)

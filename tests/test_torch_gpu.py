@@ -1,6 +1,6 @@
 """Tests of the port that need the card: each hand-written kernel against
 its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
-K12, K13 at ragged shapes, K14, K19 and the rowchain kernels K15-K18 on
+K12, K13 at ragged shapes and K12 on adversarial connectivity, K14, K19 and the rowchain kernels K15-K18 on
 small and odd rings and tori (the tensor-core bf16x3 forms of K14 and the
 rowchain step also at ragged m-tiles and across the step's row tiles), K4,
 K5, the staged MPDATA kernel behind K6, K7 and K8, K9 and K10, the
@@ -160,7 +160,7 @@ def _cke_cases(d, c3):
 @pytest.mark.parametrize("duplicates", [False, True])
 def test_cke_kernels_match_plain(cuda, geom, duplicates):
     """K3, K11, K12 (and its bf16 form) and K13 against their plain
-    versions at ragged shapes (several of K12's 32-cell blocks), with and
+    versions at ragged shapes (levels past a lane's first 32), with and
     without duplicate cells per edge; the counter rises by one per call.
     K3, K11 and K13 are bitwise equal to plain at f64."""
     e, c, k, a = geom
@@ -186,6 +186,63 @@ def test_cke_kernels_match_plain(cuda, geom, duplicates):
                 assert pointwise_check(out, ref, cfg.errtol)[0] == 0, name
             else:
                 assert rel_l1(out, ref) < 1e-6, name
+
+
+def _adversarial_cells(e, c, a, rng):
+    """Connectivity that tests K12's merge of an edge's slots: edge 0 names
+    one cell in every slot; edge 1 names distinct cells, 0 and c-1 among
+    them, in no order; edge 2 alternates two cells; edge 3 names one cell
+    twice with opposite weights (a merged weight of zero); every edge of the
+    second block of eight names distinct cells where c allows it; the rest
+    draw from a dozen cells, so duplicates abound."""
+    cells = rng.integers(0, min(c, 12), (e, a))
+    coef = rng.standard_normal((e, a))
+    cells[0] = c // 2
+    cells[1] = np.roll(np.concatenate([[c - 1, 0], rng.permutation(
+        np.arange(1, c - 1))[:a - 2]]), 3)
+    cells[2] = np.where(np.arange(a) % 2 == 0, c - 1, 0)
+    cells[3, :2] = 7 % c
+    coef[3, 1] = -coef[3, 0]
+    block = np.arange(8, min(e, 16))
+    if c >= len(block) * a:
+        cells[block] = rng.permutation(c)[:len(block) * a].reshape(-1, a)
+    return cells, coef
+
+
+@pytest.mark.parametrize("geom", [(13, 37, 133, 10), (21, 301, 57, 10),
+                                  (9, 50, 100, 40)])
+def test_onehot_kernel_on_adversarial_connectivity(cuda, geom):
+    """K12 (exact f32 and f64, and the bf16 form) against its plain version
+    at the gates test_cke_kernels_match_plain uses, on connectivity built to
+    break the merge of an edge's slots (_adversarial_cells), at ragged
+    nedges, ncells and nvert (no multiple of the 8-edge block, the 32 lanes
+    or a lane's 128 levels) and at nadv above the warp's 32 lanes."""
+    e, c, k, a = geom
+    cfg = with_overrides(CkeConfig(), nedges=e, ncells=c, nvertlevels=k, nadv=a)
+    host = cp.init_data(cfg)
+    cells, coef = _adversarial_cells(e, c, a, np.random.default_rng(e))
+    host.adv_cells = torch.from_numpy(cells).to(torch.int32)
+    host.adv_coefs = torch.from_numpy(coef).to(host.adv_coefs.dtype)
+    host.adv_coefs3 = torch.from_numpy(np.flip(coef, 1).copy()).to(host.adv_coefs3.dtype)
+    for dtype in (torch.float32, torch.float64):
+        d = host.to(cuda, dtype)
+        c3 = coef3_of(with_overrides(cfg, dtype=str(dtype)[6:]))
+        t = d.tracer * d.cell_mask
+        args = (d.adv_cells, d.adv_coefs, d.adv_coefs3, t, d.ntf, d.adv_mask, c3)
+        for bf16 in (False, True) if dtype == torch.float32 else (False,):
+            before = koh.cke_onehot.launches
+            out = koh.cke_onehot(*args, bf16)
+            torch.cuda.synchronize()
+            assert koh.cke_onehot.launches == before + 1
+            ref = koh.cke_onehot_plain(*args, bf16)
+            assert out.shape == (e, k) and float(ref.abs().max()) > 0
+            assert bool(torch.isfinite(out).all())
+            if bf16:
+                assert rel_l1(out, ref) < 1e-2
+            elif dtype == torch.float64:
+                assert pointwise_check(out, ref, cfg.errtol)[0] == 0
+            else:
+                assert rel_l1(out, ref) < 1e-6
 
 
 def test_driver_runs_cke_through_the_kernels(cuda):
@@ -422,6 +479,51 @@ def test_staged_kernel_matches_plain(cuda, geom):
                 assert rel_l1(flux_k, flux_p) < gate_flux, (wrapper.__name__, dtype, n)
 
 
+@pytest.mark.parametrize("geom", [(4, 8, 12), (5, 5, 9), (6, 32, 58),
+                                  (3, 7, 100), (2, 5, 200)])
+def test_staged_kernel_steps_in_one_launch_equal_one_step_launches(cuda, geom):
+    """K8 at n steps is bit for bit n one-step K6 launches, at f32, f64 and
+    bf16, at the small geometries, the shipped slice (nzm 57, nx 32) and
+    nzm 99 and 199 (a lane holds 4 and 8 levels); at f32 and f64 the f of
+    both is bit for bit the staged reference's (every operation rounds as
+    the plain version's) and the flux within the gates."""
+    s, nx, nz = geom
+    cfg = with_overrides(MpdataConfig(), nslices=s, nx=nx, nz=nz)
+    for dtype, gate_flux in ((torch.float32, 1e-5), (torch.float64, 1e-13),
+                             (torch.bfloat16, None)):
+        d = mp.init_data(cfg).to(cuda, dtype)
+        args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+        f, flux = d.f, d.flux
+        for n in range(1, 4):
+            f, flux = mstaged.advect_fused(f, *args[1:6], flux, 1)
+            deep = mstaged.advect_staged_resident(*args, n)
+            torch.cuda.synchronize()
+            assert torch.equal(deep[0], f) and torch.equal(deep[1], flux), (dtype, n)
+            if gate_flux is not None:
+                f_p, flux_p = mstaged.advect_staged_plain(*args, n)
+                assert torch.equal(f, f_p), (dtype, n)
+                assert rel_l1(flux, flux_p) < gate_flux, (dtype, n)
+
+
+def test_staged_kernel_split_slices_equal_whole_ones(cuda):
+    """Below 1024 slices the staged kernel splits a slice's x range among
+    warps (the shipped 48 slices: 4 warps a slice); the same slices in a
+    launch of 1024, one warp each, come out bit for bit the same, f and
+    flux, at f32, f64 and bf16, one step and three."""
+    cfg = with_overrides(MpdataConfig(), nslices=1024, nx=32, nz=58)
+    host = mp.init_data(cfg)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        d = host.to(cuda, dtype)
+        args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+        few = tuple(a[:48].contiguous() for a in args)
+        for n in (1, 3):
+            whole = mstaged.advect_staged_resident(*args, n)
+            split = mstaged.advect_staged_resident(*few, n)
+            torch.cuda.synchronize()
+            assert torch.equal(split[0], whole[0][:48]), (dtype, n)
+            assert torch.equal(split[1], whole[1][:48]), (dtype, n)
+
+
 def test_hoisted_wrapper_counts_apart(cuda):
     """K9 runs K2's kernel and counts in its own counter."""
     d = mp.init_data(with_overrides(MpdataConfig(), nslices=4, nx=8,
@@ -437,9 +539,18 @@ def test_hoisted_wrapper_counts_apart(cuda):
 
 
 def test_staged_kernel_refuses_oversized_slice(cuda):
+    """The staged kernel sweeps a slice along x, so a slice of any width
+    runs: nx 2048, which no block's shared memory held, matches its plain
+    version (f bit for bit).  It refuses a slice of more levels than its
+    lanes hold (nzm 300)."""
     cfg = with_overrides(MpdataConfig(), nslices=1, nx=2048, nz=58)
     d = mp.init_data(cfg).to(cuda)
-    with pytest.raises(UnsupportedConfigError, match="shared memory"):
+    args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+    f_k, flux_k = mstaged.advect_staged_resident(*args, 2)
+    f_p, flux_p = mstaged.advect_staged_plain(*args, 2)
+    assert torch.equal(f_k, f_p) and rel_l1(flux_k, flux_p) < 1e-13
+    d = mp.init_data(with_overrides(cfg, nx=8, nz=301)).to(cuda)
+    with pytest.raises(UnsupportedConfigError, match="levels"):
         mstaged.advect_staged_resident(d.f, d.u, d.w, d.rho, d.rhow, d.adz,
                                        d.flux, 1)
 
