@@ -200,10 +200,12 @@ def dss_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
         return dss_resident_plain(L, w, q_lane, nsteps, precision, L2)
     out = launch(L, w, q_lane, nsteps, precision, L2, 0, "dss_resident")
     dss_resident.launches += 1
+    dss_resident.steps += nsteps
     return out
 
 
 dss_resident.launches = 0  # kernel launches in this process
+dss_resident.steps = 0  # steps those launches ran
 
 
 def dss_resident_window(L_ext: torch.Tensor, w_ext: torch.Tensor,
@@ -255,10 +257,12 @@ def dss_resident_window(L_ext: torch.Tensor, w_ext: torch.Tensor,
             err = _lib().cdk_dss_resident_window_f64(*args, int(sq), stream)
     build.check(err, "dss_resident_window")
     dss_resident_window.launches += 1
+    dss_resident_window.steps += nsteps
     return out
 
 
 dss_resident_window.launches = 0  # kernel launches in this process
+dss_resident_window.steps = 0  # steps those launches ran
 
 
 def _dss_resident_forms(cfg, precision: str, precomposed: bool = False):

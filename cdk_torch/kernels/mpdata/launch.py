@@ -1,14 +1,12 @@
-"""Binding of the MPDATA kernels: csrc/mpdata_resident.cu, the step kernel
-in its hoisted form (K2, K9; see resident.py) and its staged form (K6, K7,
-K8; see staged.py), and csrc/mpdata_masked.cu, the masked-global step
-(K20-K25; see masked.py).  The ctypes entry points, the shared-memory
-refusal and the launch count every wrapper of both sources uses
-(`require_smem`, `counted`), the checks of the resident/staged wrappers
-(the hoisted form holds a slice in one block's shared memory; the staged
-form, a warp's x sweep, holds any nx and at most
-`cdk_mpdata_staged_max_levels()` levels), `step_kernel`, which makes such a
-wrapper, and `resident_forms`, the registry forms of an n-steps-per-launch
-variant.
+"""Binding of the MPDATA kernels, the x sweep of csrc/mpdata_sweep.cuh:
+csrc/mpdata_resident.cu, the step kernel in its hoisted form (K2, K9; see
+resident.py) and its staged form (K6, K7, K8; see staged.py), and
+csrc/mpdata_masked.cu, the masked-global step (K20-K25; see masked.py).
+The ctypes entry points, the launch count every wrapper of both sources
+uses (`counted`), the level limit both take (`check_levels`: the sweep
+holds any nx and at most `cdk_mpdata_max_levels()` levels), the checks of
+the resident/staged wrappers, `step_kernel`, which makes such a wrapper,
+and `resident_forms`, the registry forms of an n-steps-per-launch variant.
 """
 
 from __future__ import annotations
@@ -30,38 +28,42 @@ def _lib() -> ctypes.CDLL:
                  "cdk_mpdata_staged_f32", "cdk_mpdata_staged_f64",
                  "cdk_mpdata_staged_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for name in ("cdk_mpdata_masked_f32", "cdk_mpdata_masked_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.cdk_mpdata_resident_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.cdk_mpdata_resident_smem_bytes.restype = ctypes.c_longlong
-    lib.cdk_mpdata_staged_max_levels.argtypes = []
-    lib.cdk_mpdata_staged_max_levels.restype = ctypes.c_int
-    lib.cdk_mpdata_masked_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.cdk_mpdata_masked_smem_bytes.restype = ctypes.c_longlong
-    lib.cdk_max_shared_optin.argtypes = [ctypes.c_int]
-    lib.cdk_max_shared_optin.restype = ctypes.c_int
+    lib.cdk_mpdata_max_levels.argtypes = []
+    lib.cdk_mpdata_max_levels.restype = ctypes.c_int
     return lib
 
 
-def require_smem(need: int, device: torch.device, what: str) -> None:
-    """Refuse (UnsupportedConfigError, never a fallback) a launch whose
-    block needs more than the card's opt-in shared memory."""
-    have = _lib().cdk_max_shared_optin(device.index)
-    if need > have:
+def check_levels(nzm: int, what: str) -> None:
+    """Refuse (UnsupportedConfigError, never a fallback) a slice of more
+    levels than the sweep's lanes hold."""
+    if nzm > (most := _lib().cdk_mpdata_max_levels()):
         raise UnsupportedConfigError(
-            f"{what} needs {need} B of shared memory; the card allows "
-            f"{have} B per block")
+            f"{what} takes at most {most} levels a slice (nzm={nzm})")
+
+
+def check_warps(warps: int | None) -> int:
+    """The C entries' `warps`: 0 picks by slice count; else 1, 2, 4 or 8
+    warps a slice."""
+    if warps is None:
+        return 0
+    if warps not in (1, 2, 4, 8):
+        raise ValueError(f"warps a slice must be 1, 2, 4 or 8 (got {warps})")
+    return warps
 
 
 def counted(fn):
     """Give the kernel wrapper `fn` its launch count, to which it adds one
-    where it launches its kernel and nowhere else."""
+    where it launches its kernel and nowhere else, and its step count, to
+    which it adds the steps that launch ran."""
     fn.launches = 0  # kernel launches in this process
+    fn.steps = 0  # MPDATA steps those launches ran
     return fn
 
 
@@ -90,28 +92,22 @@ def _validate(f, u, w, rho, rhow, adz, flux, n, hoist):
         kinds = [str(d).removeprefix("torch.") for h, d in _ENTRY if h == hoist]
         raise TypeError(f"the {'hoisted' if hoist else 'staged'} step takes "
                         f"{' or '.join(kinds)}, not {f.dtype}")
+    if f.is_cuda:  # the sweep's level limit, both forms
+        check_levels(nzm, f"the {'hoisted' if hoist else 'staged'} step")
 
 
-def _launch(f, u, w, rho, rhow, adz, flux, n, hoist):
+def _launch(f, u, w, rho, rhow, adz, flux, n, hoist, warps):
     args = (f, u, w, rho, rhow, adz, flux)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("the MPDATA step kernel needs contiguous fields")
     s, xf, nzm = f.shape
-    nx = xf - 6
-    lib = _lib()
-    if hoist:
-        require_smem(lib.cdk_mpdata_resident_smem_bytes(nx, nzm, f.element_size()),
-                     f.device, f"one slice (nx={nx}, nzm={nzm}, {f.dtype})")
-    elif nzm > (most := lib.cdk_mpdata_staged_max_levels()):
-        raise UnsupportedConfigError(
-            f"the staged step takes at most {most} levels a slice (nzm={nzm})")
     f_out = torch.empty_like(f)
     flux_out = torch.empty_like(flux)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     with torch.cuda.device(f.device):
-        err = getattr(lib, _ENTRY[hoist, f.dtype])(
+        err = getattr(_lib(), _ENTRY[hoist, f.dtype])(
             *(t.data_ptr() for t in args), f_out.data_ptr(),
-            flux_out.data_ptr(), s, nx, nzm, n, stream)
+            flux_out.data_ptr(), s, xf - 6, nzm, n, check_warps(warps), stream)
     build.check(err, "mpdata_resident")
     return f_out, flux_out
 
@@ -120,15 +116,18 @@ def step_kernel(name: str, hoist: bool, plain, doc: str):
     """A wrapper of csrc/mpdata_resident.cu, hoisted or staged, with its own
     launch count: fn(f, u, w, rho, rhow, adz, flux, n) -> (f, flux) after
     n steps.  CUDA tensors launch the kernel (never anything else); CPU
-    tensors run `plain` with the same arguments."""
+    tensors run `plain` with the same arguments.  `warps` sets the warps a
+    slice (1, 2, 4 or 8) where the kernel's own choice by slice count is
+    not wanted, as a measurement of that choice does."""
 
     @counted
-    def wrapper(f, u, w, rho, rhow, adz, flux, n: int):
+    def wrapper(f, u, w, rho, rhow, adz, flux, n: int, *, warps=None):
         _validate(f, u, w, rho, rhow, adz, flux, n, hoist)
         if f.device.type == "cpu":
             return plain(f, u, w, rho, rhow, adz, flux, n)
-        out = _launch(f, u, w, rho, rhow, adz, flux, n, hoist)
+        out = _launch(f, u, w, rho, rhow, adz, flux, n, hoist, warps)
         wrapper.launches += 1
+        wrapper.steps += n
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name

@@ -34,8 +34,11 @@ the kernel and nothing else; CPU tensors run the plain version:
 
 and the split forms concatenate (left, owned, right) and return the owned
 columns.  gi0 is the global Fortran index of the window's first column.
-A geometry whose window does not fit one block's shared memory raises
-UnsupportedConfigError.
+The kernel is the masked mode of the MPDATA x sweep (one warp a slice
+sweeping the window's columns; csrc/mpdata_sweep.cuh): it takes a window
+of any width and up to 256 levels, and raises UnsupportedConfigError past
+that.  f is bit for bit the plain version's; the flux partial's column
+sums run in x order.
 """
 
 from __future__ import annotations
@@ -44,7 +47,12 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.platform import exact_fp32
-from cdk_torch.kernels.mpdata.launch import _lib, counted, require_smem
+from cdk_torch.kernels.mpdata.launch import (
+    _lib,
+    check_levels,
+    check_warps,
+    counted,
+)
 from cdk_torch.kernels.mpdata.reference import (
     EPS,
     _across,
@@ -320,41 +328,44 @@ def _validate(f, u, w, rho, rhow, adz, X, nzm, nsteps, owned_lo, owned_hi,
                             f"must be {f.dtype} on {f.device}")
     if f.dtype not in _ENTRY:
         raise TypeError(f"the masked step takes float32 or float64, not {f.dtype}")
+    if f.is_cuda:
+        check_levels(nzm, "the masked step")
 
 
 def _launch(f, fl, fr, u, w, rho, rhow, adz, gi0, nx, owned_lo, owned_hi,
-            nsteps, hoist):
+            nsteps, hoist, warps):
     """One launch over all slices; fl/fr None for a pre-built window, else
     the left and right strips around the owned block f (owned columns
-    are then the only ones written)."""
+    are then the only ones written, and a window-sized scratch buffer
+    carries the steps before the last)."""
     halo = 0 if fl is None else fl.shape[1]
     s, X, nzm = u.shape
     args = [t for t in (fl, f, fr, u, w, rho, rhow, adz) if t is not None]
     if not all(t.is_contiguous() for t in args):
         raise ValueError("the masked step kernel needs contiguous fields")
-    lib = _lib()
-    require_smem(lib.cdk_mpdata_masked_smem_bytes(X, nzm, f.element_size()),
-                 f.device, f"a window of {X} columns x {nzm} levels ({f.dtype})")
     f_out = torch.empty_like(f)
     flux_out = f.new_empty((s, nzm))
+    win = u.new_empty((s, X, nzm)) if fl is not None and nsteps > 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(f.device).cuda_stream
     with torch.cuda.device(f.device):
-        err = getattr(lib, _ENTRY[f.dtype])(
+        err = getattr(_lib(), _ENTRY[f.dtype])(
             ptr(fl), f.data_ptr(), ptr(fr), u.data_ptr(), w.data_ptr(),
             rho.data_ptr(), rhow.data_ptr(), adz.data_ptr(), f_out.data_ptr(),
-            flux_out.data_ptr(), s, X, nzm, nx, int(gi0), owned_lo, owned_hi,
-            halo, nsteps, int(hoist), stream)
+            flux_out.data_ptr(), ptr(win), s, X, nzm, nx, int(gi0), owned_lo,
+            owned_hi, halo, nsteps, int(hoist), check_warps(warps), stream)
     build.check(err, "mpdata_masked")
     return f_out, flux_out
 
 
 def _masked(wrapper, f, strips, u, w, rho, rhow, adz, gi0, nx, nzm,
-            owned_lo, owned_hi, nsteps, hoist):
+            owned_lo, owned_hi, nsteps, hoist, warps):
     """The body of every wrapper: check, then the plain version for CPU
     tensors or one launch (counted on `wrapper`) for CUDA tensors.  strips
     is None for a pre-built window, else the (left, right) strips around
-    the owned block f, whose owned columns alone are returned."""
+    the owned block f, whose owned columns alone are returned.  `warps`
+    sets the kernel's warps a slice (1, 2, 4 or 8) where its own choice by
+    slice count is not wanted, as a measurement of that choice does."""
     if f.shape[-1] != nzm:
         raise ValueError(f"nzm={nzm} but f has {f.shape[-1]} levels")
     X = u.shape[1]
@@ -368,8 +379,9 @@ def _masked(wrapper, f, strips, u, w, rho, rhow, adz, gi0, nx, nzm,
         return (f_o, flux) if strips is None else (f_o[:, owned_lo:owned_hi], flux)
     fl, fr = strips or (None, None)
     out = _launch(f, fl, fr, u, w, rho, rhow, adz, gi0, nx, owned_lo,
-                  owned_hi, nsteps, hoist)
+                  owned_hi, nsteps, hoist, warps)
     wrapper.launches += 1
+    wrapper.steps += nsteps
     return out
 
 
@@ -378,7 +390,7 @@ def masked_step_pallas(f, u, w, rho, rhow, adz, gi0, *, nx, owned_lo, owned_hi):
     """K20: one masked-global step on a window (S, X, nzm); returns (f_out
     (S, X, nzm), flux partial (S, nzm) over owned columns in [1, nx])."""
     return _masked(masked_step_pallas, f, None, u, w, rho, rhow, adz, gi0, nx,
-                   f.shape[-1], owned_lo, owned_hi, 1, False)
+                   f.shape[-1], owned_lo, owned_hi, 1, False, None)
 
 
 @counted
@@ -386,44 +398,44 @@ def masked_step_pallas_packed(f, u, w, rho, rhow, adz, gi0, *, nx, nzm,
                               owned_lo, owned_hi):
     """K21: the same step as K20 (the JAX form packs two slices per row)."""
     return _masked(masked_step_pallas_packed, f, None, u, w, rho, rhow, adz,
-                   gi0, nx, nzm, owned_lo, owned_hi, 1, False)
+                   gi0, nx, nzm, owned_lo, owned_hi, 1, False, None)
 
 
 @counted
 def masked_step_xmajor(f, u, w, rho, rhow, adz, gi0, *, nx, nzm, owned_lo,
-                       owned_hi):
+                       owned_hi, warps=None):
     """K22: the same step as K20 (the JAX form is x-major, the AUTO core)."""
     return _masked(masked_step_xmajor, f, None, u, w, rho, rhow, adz, gi0, nx,
-                   nzm, owned_lo, owned_hi, 1, False)
+                   nzm, owned_lo, owned_hi, 1, False, warps)
 
 
 @counted
 def masked_step_xmajor_split(f_loc, f_left, f_right, u_ext, w_ext, rho, rhow,
-                             adz, gi0, *, nx, nzm, halo):
+                             adz, gi0, *, nx, nzm, halo, warps=None):
     """K23: one masked step on the window (f_left, f_loc, f_right) with u/w
     already extended; gi0 is the global index of the first halo column.
     Returns (f_out (S, chunk, nzm), owned columns only, and the flux
     partial)."""
     return _masked(masked_step_xmajor_split, f_loc, (f_left, f_right), u_ext,
                    w_ext, rho, rhow, adz, gi0, nx, nzm, halo,
-                   u_ext.shape[1] - halo, 1, False)
+                   u_ext.shape[1] - halo, 1, False, warps)
 
 
 @counted
 def masked_kloop_xmajor(f, u, w, rho, rhow, adz, gi0, *, nx, nzm, owned_lo,
-                        owned_hi, nsteps):
+                        owned_hi, nsteps, warps=None):
     """K24: nsteps hoisted masked steps on a deep-halo window in one launch.
     Returns (f_out over the whole window, only [owned_lo, owned_hi)
     meaningful after nsteps, and the last step's flux partial)."""
     return _masked(masked_kloop_xmajor, f, None, u, w, rho, rhow, adz, gi0, nx,
-                   nzm, owned_lo, owned_hi, nsteps, True)
+                   nzm, owned_lo, owned_hi, nsteps, True, warps)
 
 
 @counted
 def masked_kloop_xmajor_split(f_loc, f_left, f_right, u_ext, w_ext, rho, rhow,
-                              adz, gi0, *, nx, nzm, halo, nsteps):
+                              adz, gi0, *, nx, nzm, halo, nsteps, warps=None):
     """K25: K24 on the window (f_left, f_loc, f_right), halo = 3·nsteps;
     returns (the owned columns, the last step's flux partial)."""
     return _masked(masked_kloop_xmajor_split, f_loc, (f_left, f_right), u_ext,
                    w_ext, rho, rhow, adz, gi0, nx, nzm, halo,
-                   u_ext.shape[1] - halo, nsteps, True)
+                   u_ext.shape[1] - halo, nsteps, True, warps)

@@ -10,14 +10,22 @@ not ported: one kernel takes the canonical (S, X, Z) layout and serves
 both names, `pallas_xmajor` (K2) and `pallas_hoisted` (K9).  Their
 wrappers count their launches apart.
 
-The CUDA kernel is csrc/mpdata_resident.cu.  Beside it here:
-`advect_resident_plain`, the same hoisted-invariant step loop in plain
-PyTorch (the CPU path, and what the card's kernel is compared with), and
-the wrappers `advect_resident` (K2) and `advect_hoisted_resident` (K9),
-made by `step_kernel`, which launch the kernel for CUDA tensors and run
-the plain version for CPU tensors.  The plain version is
-elementwise, and still runs with TF32 off (`exact_fp32`) like every plain
-version and reference on the card.
+The CUDA kernel is the hoisted form of csrc/mpdata_resident.cu: the
+MPDATA x sweep (csrc/mpdata_sweep.cuh; one warp per slice sweeping x, the
+levels across its lanes, the stage rows in registers; below 1024 slices a
+slice split among a few warps), with stage 4's coefficients recomputed per
+point from u and w in the order `make_invariants` and `advect_hoisted`
+use.  Beside it here: `advect_resident_plain`, the same hoisted-invariant
+step loop in plain PyTorch (the CPU path, and what the card's kernel is
+compared with), and the wrappers `advect_resident` (K2) and
+`advect_hoisted_resident` (K9), made by `step_kernel`, which launch the
+kernel for CUDA tensors and run the plain version for CPU tensors.  Every
+operation of the kernel rounds as the plain version's, so f matches it bit
+for bit at f32 and f64; the flux column sums run in x order.  The kernel
+takes any nx and up to 256 levels (nzm) and raises
+UnsupportedConfigError past that.  The plain version is elementwise, and
+still runs with TF32 off (`exact_fp32`) like every plain version and
+reference on the card.
 
 Hoisting folds the stage-4 coefficients out of the loop and combines two
 z-shifted terms by shift-linearity (kc(x)+kc(y) == kc(x+y)), which
@@ -185,9 +193,10 @@ advect_hoisted_resident = step_kernel(
 @register(
     "mpdata",
     "pallas_hoisted",
-    "resident kernel with all step-invariant math pre-folded before the "
-    "in-kernel time loop (upwind splits of u/w, antidiffusion + cross-term "
-    "coefficients with dd/irho/irhow absorbed); ~1 ulp/step reassociation "
+    "resident kernel in the order of all step-invariant math pre-folded "
+    "before the in-kernel time loop (upwind splits of u/w, antidiffusion + "
+    "cross-term coefficients with dd/irho/irhow absorbed; the sweep "
+    "recomputes them per point in that order); ~1 ulp/step reassociation "
     "vs the reference ordering",
 )
 def make_pallas_hoisted(cfg):
@@ -197,9 +206,9 @@ def make_pallas_hoisted(cfg):
 @register(
     "mpdata",
     "pallas_xmajor",
-    "resident step loop: one block per CRM slice holds the slice, the "
-    "hoisted invariants and the stage temporaries in shared memory and "
-    "runs all n steps in one kernel launch",
+    "resident step loop: all n steps in one kernel launch, one warp per "
+    "CRM slice sweeping x with the stage rows in registers and the "
+    "invariant coefficients recomputed per point in the hoisted order",
 )
 def make_pallas_xmajor(cfg):
     return resident_forms(advect_resident)

@@ -16,7 +16,7 @@ kspan input, the slice padding and the even-slice and nz <= 64 guards) and
 are not ported.  All three run the staged form of csrc/mpdata_resident.cu
 (one warp per slice sweeping it along x with the levels across its lanes,
 every stage a fixed lag behind the rows it reads, in registers; below 1024
-slices a slice's x range split among 2 or 4 warps; the antidiffusive
+slices a slice's x range split among up to 8 warps; the antidiffusive
 velocities computed each step in the reference's operation order), through
 wrappers with their own launch counts: `advect_fused`
 (K6), `advect_packed` (K7) and `advect_staged_resident` (K8).  The kernel

@@ -79,13 +79,14 @@ def test_bd8_kernel_matches_plain(cuda, ncol):
             assert rel_l2(out, bres.bd8_resident_plain(L, q, n, prec)) < gate
 
 
-@pytest.mark.parametrize("geom", [(4, 8, 12), (6, 5, 9)])
+@pytest.mark.parametrize("geom", [(4, 8, 12), (6, 5, 9), (3, 7, 100)])
 def test_resident_kernel_matches_plain(cuda, geom):
-    """K2 against its plain version, whole f and flux, n = 0, 1, 4."""
+    """K2 against its plain version, n = 0, 1, 4: f bit for bit (every
+    operation rounds as the plain version's), the flux within the gates
+    (its column sums run in x order); nzm 99 puts 4 levels on a lane."""
     s, nx, nz = geom
     cfg = with_overrides(MpdataConfig(), nslices=s, nx=nx, nz=nz)
-    for dtype, gate_f, gate_flux in ((torch.float32, 1e-6, 1e-5),
-                                     (torch.float64, 1e-13, 1e-13)):
+    for dtype, gate_flux in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
         d = mp.init_data(cfg).to(cuda, dtype)
         args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
         for n in (0, 1, 4):
@@ -94,14 +95,41 @@ def test_resident_kernel_matches_plain(cuda, geom):
             torch.cuda.synchronize()
             assert mres.advect_resident.launches == before + 1
             f_p, flux_p = mres.advect_resident_plain(*args, n)
-            assert rel_l1(f_k, f_p) < gate_f
-            assert rel_l1(flux_k, flux_p) < gate_flux
+            assert torch.equal(f_k, f_p), (dtype, n)
+            assert rel_l1(flux_k, flux_p) < gate_flux, (dtype, n)
+
+
+@pytest.mark.parametrize("warps", [None, 1, 2, 4, 8])
+def test_resident_kernel_split_slices_match_plain(cuda, warps):
+    """K2 at the shipped 48 slices, where the sweep splits a slice among
+    warps (None: the kernel's own choice), one step and three: f bit for
+    bit the plain version's, and f and flux bit for bit one warp a slice."""
+    d = mp.init_data(with_overrides(MpdataConfig(), nslices=48, nx=32, nz=58))
+    for dtype, gate_flux in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+        args = tuple(t.to(cuda, dtype) for t in (d.f, d.u, d.w, d.rho, d.rhow,
+                                                 d.adz, d.flux))
+        for n in (1, 3):
+            f_k, flux_k = mres.advect_resident(*args, n, warps=warps)
+            whole = mres.advect_resident(*args, n, warps=1)
+            torch.cuda.synchronize()
+            f_p, flux_p = mres.advect_resident_plain(*args, n)
+            assert torch.equal(f_k, f_p), (dtype, n)
+            assert rel_l1(flux_k, flux_p) < gate_flux, (dtype, n)
+            assert torch.equal(f_k, whole[0]) and torch.equal(flux_k, whole[1])
 
 
 def test_resident_kernel_refuses_oversized_slice(cuda):
+    """The hoisted sweep takes a slice of any width (nx 2048, beyond what a
+    block's shared memory held) and refuses one of more levels than its
+    lanes hold (nzm 300)."""
     cfg = with_overrides(MpdataConfig(), nslices=1, nx=2048, nz=58)
     d = mp.init_data(cfg).to(cuda)
-    with pytest.raises(UnsupportedConfigError, match="shared memory"):
+    args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+    f_k, flux_k = mres.advect_resident(*args, 2)
+    f_p, flux_p = mres.advect_resident_plain(*args, 2)
+    assert torch.equal(f_k, f_p) and rel_l1(flux_k, flux_p) < 1e-13
+    d = mp.init_data(with_overrides(cfg, nx=8, nz=301)).to(cuda)
+    with pytest.raises(UnsupportedConfigError, match="levels"):
         mres.advect_resident(d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux, 1)
 
 
@@ -507,7 +535,7 @@ def test_staged_kernel_steps_in_one_launch_equal_one_step_launches(cuda, geom):
 
 def test_staged_kernel_split_slices_equal_whole_ones(cuda):
     """Below 1024 slices the staged kernel splits a slice's x range among
-    warps (the shipped 48 slices: 4 warps a slice); the same slices in a
+    warps (the shipped 48 slices: 8 warps a slice); the same slices in a
     launch of 1024, one warp each, come out bit for bit the same, f and
     flux, at f32, f64 and bf16, one step and three."""
     cfg = with_overrides(MpdataConfig(), nslices=1024, nx=32, nz=58)
@@ -667,13 +695,68 @@ def test_masked_kernels_match_plain(cuda, geom):
 
 
 def test_masked_kernel_refuses_oversized_window(cuda):
-    """A window of 140 columns x 57 levels needs 256,728 B at f32."""
-    d = mp.init_data(with_overrides(MpdataConfig(), nslices=1, nx=128,
-                                    nz=58)).to(cuda, torch.float32)
-    f, u, w, aux, gi0 = _masked_window(d, -3, 140)
-    with pytest.raises(UnsupportedConfigError, match="shared memory"):
-        mmask.masked_step_pallas(f, u, w, *aux, gi0, nx=128, owned_lo=3,
-                                 owned_hi=137)
+    """The masked sweep takes a window of any width: 200 columns x 57 levels
+    at f64, which no block's shared memory held (the old kernel refused
+    past 62), matches its plain version, f bit for bit, one step and two
+    hoisted ones; it refuses a window of more levels than its lanes hold
+    (nzm 300)."""
+    d = mp.init_data(with_overrides(MpdataConfig(), nslices=2, nx=194,
+                                    nz=58)).to(cuda, torch.float64)
+    f, u, w, aux, gi0 = _masked_window(d, -3, 200)
+    kw = dict(owned_lo=6, owned_hi=194)
+    f_k, flux_k = mmask.masked_step_pallas(f, u, w, *aux, gi0, nx=194, **kw)
+    f_p, flux_p = mmask.masked_step_plain(f, u, w, *aux, gi0, 194, 6, 194)
+    assert torch.equal(f_k, f_p) and rel_l1(flux_k, flux_p) < 1e-13
+    f_k, flux_k = mmask.masked_kloop_xmajor(f, u, w, *aux, gi0, nx=194, nzm=57,
+                                            nsteps=2, **kw)
+    f_p, flux_p = mmask.masked_kloop_plain(f, u, w, *aux, gi0, 194, 6, 194, 2)
+    assert torch.equal(f_k, f_p) and rel_l1(flux_k, flux_p) < 1e-13
+    d = mp.init_data(with_overrides(MpdataConfig(), nslices=1, nx=8,
+                                    nz=301)).to(cuda, torch.float32)
+    f, u, w, aux, gi0 = _masked_window(d, -3, 20)
+    with pytest.raises(UnsupportedConfigError, match="levels"):
+        mmask.masked_step_pallas(f, u, w, *aux, gi0, nx=8, owned_lo=3,
+                                 owned_hi=17)
+
+
+@pytest.mark.parametrize("warps", [None, 1, 2, 4, 8])
+def test_masked_kernel_split_slices_match_plain(cuda, warps):
+    """The masked sweep at the shipped 48 slices on the one-shard window,
+    a slice split among warps (None: the kernel's own choice): K22 and K23
+    one step, K24 and K25 three, f bit for bit the plain version's and f and
+    flux bit for bit one warp a slice."""
+    cfg = with_overrides(MpdataConfig(), nslices=48, nx=32, nz=58)
+    host = mp.init_data(cfg)
+    for dtype, gate in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+        d = host.to(cuda, dtype)
+        for n in (1, 3):
+            h = 3 * n
+            f, u, w, aux, gi0 = _masked_window(d, -h, 38 + 2 * h)
+            X = f.shape[1]
+            strips = (f[:, :h].contiguous(), f[:, X - h:].contiguous())
+            own = f[:, h:X - h].contiguous()
+            kw = dict(nx=32, nzm=57)
+            if n == 1:
+                whole = lambda k: mmask.masked_step_xmajor(
+                    f, u, w, *aux, gi0, **kw, owned_lo=h, owned_hi=X - h, warps=k)
+                split = lambda k: mmask.masked_step_xmajor_split(
+                    own, *strips, u, w, *aux, gi0, **kw, halo=h, warps=k)
+                plain = mmask.masked_step_plain(f, u, w, *aux, gi0, 32, h, X - h)
+            else:
+                whole = lambda k: mmask.masked_kloop_xmajor(
+                    f, u, w, *aux, gi0, **kw, owned_lo=h, owned_hi=X - h,
+                    nsteps=n, warps=k)
+                split = lambda k: mmask.masked_kloop_xmajor_split(
+                    own, *strips, u, w, *aux, gi0, **kw, halo=h, nsteps=n,
+                    warps=k)
+                plain = mmask.masked_kloop_plain(f, u, w, *aux, gi0, 32, h,
+                                                 X - h, n)
+            for run, cut in ((whole, slice(None)), (split, slice(h, X - h))):
+                got, one = run(warps), run(1)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], plain[0][:, cut]), (dtype, n)
+                assert rel_l1(got[1], plain[1]) < gate, (dtype, n)
+                assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
 
 
 def test_dist_forms_run_through_the_masked_kernels(cuda):
