@@ -12,7 +12,8 @@ Phases, each printing its result; the first failure exits non-zero:
               registers and spills of the kernels redesigned for Hopper:
               K14's bf16x3 ring kernel, the rowchain step kernel, the
               MPDATA sweep (every instantiation: staged K6-K8, hoisted
-              K2/K9, masked K20-K25) and K12
+              K2/K9, masked K20-K25), K12, and K3 and K13 (with K13's
+              transpose)
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes (shipped and production),
               f32 and f64, with the family's gate; both timed with CUDA
@@ -27,10 +28,15 @@ Phases, each printing its result; the first failure exits non-zero:
               equal to four K6 launches), K9 and K10 at shipped f32/f64 and
               production f32; the MPDATA sweep at the shipped 48 slices
               with 1, 2, 4 and 8 warps a slice (K2, K6, K8, K22-K25),
-              outputs bitwise equal across the counts; the CKE kernels K3, K11, K12 (and its bf16
+              outputs bitwise equal across the counts; the card's L2 read
+              rate (a probe reading an L2-resident 11.2 MB buffer); the
+              CKE kernels K3, K11 (beside it torch.einsum of the stacked
+              coefficients by the staged rows), K12 (and its bf16
               form; beside it torch.matmul of the prebuilt [A1; A3], f32
               and f64) and K13 at the shipped 25600 x 2800 x 100, and K3
-              and K13 also at the production 256000 x 28000 x 100; K14
+              and K13 also at the production 256000 x 28000 x 100 (beside
+              them torch.sparse.mm of the prebuilt CSR [A1; A3], and the
+              floor their E*A*K gathered values set at the L2 rate); K14
               (four forms), K19 (two forms) and the rowchain's
               K15, K17 and step (K16 at depth 1, K18 deeper) at the
               shipped 16 x 72 x 40 (f32 and f64) and the production
@@ -86,10 +92,12 @@ Phases, each printing its result; the first failure exits non-zero:
 Then the total wall time, the rows of PERF.md's kernel table (the
 multi-step kernels with the steps their production launches ran), each
 kernel's device time lost against its bound on its path (`[7 rank]`, the
-redesign queue's order), one JSON line describing the kernels, and as the
+redesign queue's order, each kernel marked queued, redesigned and not taken
+again, or at half its bound or better and left alone), one JSON line describing the kernels, and as the
 last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
 
---times OUT runs phases 1 and 2 and then times K12 (at the shipped size,
+--times OUT runs phases 1 and 2 and then times K3 and K13 (at production
+f32 and the shipped size in f64), K12 (at the shipped size,
 f32, f64 and bf16), the MPDATA step kernel (at production, f32, f64 and
 bf16: K6 and K7 one step, K8 four; K2 one and four steps, K9 four) and the
 masked kernel (K22/K23 one step, K24/K25 four, on the one-shard window at
@@ -140,7 +148,8 @@ REDESIGNED = {"K14": (7, 1.6638), "K14w": (7, 3.8402), "K16": (7, 0.5580),
               "K6": (8, 0.5603), "K7": (8, 0.5615), "K8": (8, 1.8192),
               "K12": (8, 2.0123), "K2": (9, 0.7962), "K9": (9, 0.7968),
               "K20": (9, 0.7565), "K21": (9, 0.7535), "K22": (9, 0.7534),
-              "K23": (9, 0.8306), "K24": (9, 3.2612), "K25": (9, 3.3596)}
+              "K23": (9, 0.8306), "K24": (9, 3.2612), "K25": (9, 3.3596),
+              "K3": (10, 0.3515), "K13": (10, 0.8552)}
 
 
 # the kernels whose launches run several steps; their rows also count the
@@ -304,15 +313,21 @@ def phase_build():
     print(built.log.strip(), file=sys.stderr)
     # ptxas's registers and spills of the kernels redesigned for Hopper:
     # K14's bf16x3 ring and the rowchain step (tensor cores), the MPDATA
-    # sweep (L levels a lane; its staged, hoisted and masked modes) and K12
+    # sweep (L levels a lane; its staged, hoisted and masked modes), K12, and
+    # K3 and K13 (vec: 16-byte level groups; K13's first kernel the
+    # transpose), with their static shared memory (K3's and K13's tiles are
+    # dynamic, sized by their launchers)
     flag_names = {"step_kernel": ("x3", "sq"), "dss_ring_x3_kernel": ("sq",),
-                  "cke_onehot_kernel": ("bf16",),
+                  "cke_onehot_kernel": ("bf16",), "cke_rows_kernel": ("vec",),
+                  "cke_lanegather_kernel": ("vec",),
                   "mpdata_sweep_kernel": ("split", "hoist", "masked")}
     for m in re.finditer(r"Function properties for (\S+)\n\s+(\d+) bytes stack frame, "
                          r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
-                         r"(\d+) registers", built.log):
+                         r"(\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?",
+                         built.log):
         k = re.search(r"(dss_ring_x3_kernel|step_kernel|mpdata_sweep_kernel|"
-                      r"cke_onehot_kernel)I(\w*?)EEv", m.group(1))
+                      r"cke_onehot_kernel|cke_rows_kernel|cke_lanegather_kernel|"
+                      r"transpose_kernel)I(\w*?)EEv", m.group(1))
         if k:
             args = k.group(2)
             dtype = ("bf16 " if args.startswith("13__nv_bfloat16")
@@ -325,7 +340,8 @@ def phase_build():
                   + " ".join(f"{f}={v}" for f, v in flags.items())
                   + (f" {name}={ints[0]}" if ints else "")
                   + f": {m.group(5)} registers, spill stores {m.group(3)} B, spill "
-                  f"loads {m.group(4)} B, stack {m.group(2)} B")
+                  f"loads {m.group(4)} B, stack {m.group(2)} B, static smem "
+                  f"{m.group(6) or 0} B")
     if not built.log:
         print("[2 ptxas] library reused, not rebuilt: no ptxas report")
 
@@ -654,9 +670,57 @@ def phase_few_slices(dev, card):
         del d, args, f_s, u_s, w_s
 
 
+def l2_read_rate(dev) -> float:
+    """Bytes/s at which the card reads an L2-resident buffer of the size of
+    the production CKE table (28000 x 100 f32, 11.2 MB): the probe in
+    csrc/cke_rows.cu reads it 200 times over through L2 only, on eight
+    blocks an SM."""
+    import ctypes
+
+    import torch
+
+    from cdk_torch.core import build
+
+    fn = build.library().cdk_l2_read_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.ones(28000 * 100, dtype=torch.float32, device=dev)
+    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.empty(blocks * 256, dtype=torch.float32, device=dev)
+    reps = 200
+
+    def probe():
+        build.check(fn(buf.data_ptr(), buf.numel() // 4, reps, blocks, sink.data_ptr(),
+                       torch.cuda.current_stream(dev).cuda_stream), "l2_read_probe")
+
+    ms = timed_ms(probe, REPS)
+    if float(sink.double().sum()) != buf.numel() * reps:
+        fail("the L2 read probe summed the wrong total")
+    return buf.numel() * 4 * reps / (ms * 1e-3)
+
+
+def cke_csr(cells, c1, c3, ncells: int):
+    """The stacked connectivity [A1; A3] (2E, C) in CSR, duplicate cells of
+    an edge summed: the sparse form of K12's torch.matmul yardstick."""
+    import warnings
+
+    import torch
+
+    e, a = cells.shape
+    rows = torch.arange(2 * e, device=cells.device).repeat_interleave(a)
+    cols = cells.long().repeat(2, 1).reshape(-1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # CSR is "beta"; invariants unchecked
+        return torch.sparse_coo_tensor(torch.stack([rows, cols]),
+                                       torch.cat([c1, c3]).reshape(-1),
+                                       (2 * e, ncells)).coalesce().to_sparse_csr()
+
+
 def phase_cke_kernels(dev, card):
-    """K3, K11, K12 and K13 against their plain versions; returns the JSON
-    rows."""
+    """K3, K11, K12 and K13 against their plain versions, with the library
+    calls that compute their sums and, for K3 and K13, the floor the card's
+    L2 read rate sets; returns the JSON rows."""
     import torch
 
     from cdk_torch.core.config import CkeConfig
@@ -678,6 +742,9 @@ def phase_cke_kernels(dev, card):
     )
 
     rows = {}
+    l2_rate = l2_read_rate(dev)
+    print(f"[3 L2] read rate over an L2-resident 11.2 MB buffer: {l2_rate / 1e12:.3f} TB/s "
+          f"[{card}]")
     shapes = (("shipped", (25600, 2800), ("float32", "float64")),
               ("production", (256000, 28000), ("float32",)))
     for label, (nedges, ncells), dtypes in shapes:
@@ -758,6 +825,39 @@ def phase_cke_kernels(dev, card):
                     else:
                         lib = dict(library_ms=lib_ms, library="torch.matmul, "
                                    "prebuilt [A1; A3]")
+                elif name == "K11" and dtype == "float32":
+                    # the library call of its sums: one einsum of the
+                    # stacked coefficients by the staged rows
+                    c13 = torch.stack(edge)
+                    lib_ms = timed_ms(lambda: torch.einsum("sea,aek->sek", c13, staged),
+                                      REPS)
+                    del c13
+                    print(f"[3 K11] {label:10s} {dtype:7s}: torch.einsum of the stacked "
+                          f"coefficients by the staged rows {lib_ms:.4f} ms, kernel "
+                          f"{ms:.4f} ms [{card}]")
+                    lib = dict(library_ms=lib_ms, library="torch.einsum, stacked "
+                               "[c1; c3] by the staged rows")
+                elif key in ("K3", "K13") and label == "production":
+                    # the library call of their sums: the sparse product of
+                    # the prebuilt CSR [A1; A3] by the table (first checked
+                    # against the sums on a slice of edges); and the floor the
+                    # gathered rows set, E * A rows of K values read from L2
+                    if name == "K3":
+                        a13 = cke_csr(d.adv_cells, *edge, cfg.ncells)
+                        got = torch.sparse.mm(a13, t)
+                        part = t[d.adv_cells[:1000].long()]
+                        want = torch.cat([(c[:1000, :, None] * part).sum(1) for c in edge])
+                        gap = float((torch.cat([got[:1000], got[cfg.nedges:cfg.nedges + 1000]])
+                                     - want).abs().max() / want.abs().max())
+                        if gap > 1e-5:
+                            fail(f"torch.sparse.mm of [A1; A3] is off the sums by {gap:.3e}")
+                        del got, part, want
+                        sparse_ms = timed_ms(lambda: torch.sparse.mm(a13, t), REPS)
+                        del a13
+                        floor_ms = (cfg.nedges * cfg.nadv * cfg.nvertlevels
+                                    * t.element_size() / l2_rate * 1e3)
+                    lib = dict(library_ms=sparse_ms, library="torch.sparse.mm, "
+                               "prebuilt CSR [A1; A3]", l2_floor_ms=floor_ms)
                 if ((key in ("K3", "K13") and label == "production")
                         or (key in ("K11", "K12") and name == key
                             and dtype == "float32")):
@@ -768,10 +868,15 @@ def phase_cke_kernels(dev, card):
                     else:
                         inputs = (d.adv_cells, *edge, t, *ef)
                     rows[key] = dict(
-                        max_abs_err=mae, ms=ms, plain_ms=plain_ms,
-                        **(lib if key == "K12" else {}),
+                        max_abs_err=mae, ms=ms, plain_ms=plain_ms, **lib,
                         **bound(inputs + (out,),
                                 cke_ops(cfg.nedges, cfg.nvertlevels, cfg.nadv)))
+                    if key in ("K3", "K13"):
+                        print(f"[3 {name}] {label:10s} {dtype:7s}: kernel {ms:.4f} ms; bound "
+                              f"{rows[key]['bound_ms']:.4f} ms (bytes once); gathered-row "
+                              f"floor {floor_ms:.4f} ms (E*A*K values at the L2 read rate); "
+                              f"torch.sparse.mm of the prebuilt CSR [A1; A3] "
+                              f"{sparse_ms:.4f} ms [{card}]")
                 del out, ref
             del d, t, edge, ef, trans, cases
             if label == "shipped":
@@ -1456,14 +1561,16 @@ def phase_dist(dev, card, ledger: SizeLedger):
 
 
 def phase_times(dev, card, out: str, against: str | None) -> None:
-    """--times: K12, the MPDATA step kernel and the masked kernel, timed in
-    the tree whose cdk_torch this imports (K12 at the shipped size in f32,
+    """--times: K3, K13, K12, the MPDATA step kernel and the masked kernel,
+    timed in the tree whose cdk_torch this imports (K3 and K13 at production
+    f32 and the shipped size in f64; K12 at the shipped size in f32,
     f64 and bf16; the staged form at production in f32, f64 and bf16, K6
     and K7 one step and K8 four; the hoisted K2 one step, K2 and K9 four;
     K22 and K23 one step, K24 and K25 four, on the one-shard window at the
     shipped 48 slices, f32 and f64, and at production f32); their outputs
-    saved to `out`, and with `against` K12's (also with duplicate slots),
-    K6-K8's and K20-K25's held bitwise equal to those saved there, and K2's
+    saved to `out`, and with `against` K3's, K13's, K12's (also with
+    duplicate slots), K6-K8's and K20-K25's held bitwise equal to those
+    saved there, and K2's
     and K9's within the family gates (rel L1 on f 1e-6 / 1e-13, on flux
     1e-5 / 1e-13 at f32 / f64: the sweep rounds every operation as the plain
     version, where the block-per-slice kernel contracted into FMAs)."""
@@ -1473,8 +1580,10 @@ def phase_times(dev, card, out: str, against: str | None) -> None:
     from cdk_torch.dist import mesh as dmesh
     from cdk_torch.dist import mpdata as dmp
     from cdk_torch.kernels.cke import problem as cp
+    from cdk_torch.kernels.cke.lanegather import cke_lanegather
     from cdk_torch.kernels.cke.onehot import cke_onehot
-    from cdk_torch.kernels.cke.reference import coef3_of
+    from cdk_torch.kernels.cke.reference import coef3_of, fsign1
+    from cdk_torch.kernels.cke.rows import cke_rows
     from cdk_torch.kernels.mpdata import masked as mk
     from cdk_torch.kernels.mpdata import problem as mp
     from cdk_torch.kernels.mpdata import staged
@@ -1484,6 +1593,21 @@ def phase_times(dev, card, out: str, against: str | None) -> None:
     )
 
     times, outs = {}, {}
+    for label, nedges, ncells, dtype in (("production", 256000, 28000, "float32"),
+                                         ("shipped", 25600, 2800, "float64")):
+        cfg = CkeConfig(nedges=nedges, ncells=ncells, dtype=dtype, device_init=True)
+        d = cp.init_data(cfg, dev)
+        c3 = coef3_of(cfg)
+        args = (d.adv_cells, d.adv_coefs, d.adv_coefs3, d.tracer * d.cell_mask,
+                d.ntf, d.adv_mask)
+        trans = (*(x.T.contiguous() for x in args[:4]),
+                 (d.ntf * d.adv_mask).T.contiguous(), fsign1(d.ntf).T.contiguous())
+        for tag, run in (("K3", lambda: cke_rows(*args, c3)),
+                         ("K13", lambda: cke_lanegather(*trans, c3))):
+            key = f"{tag} {label} {dtype}"
+            outs[key] = run()
+            times[key] = timed_ms(run, REPS)
+        del d, args, trans
     for dtype in ("float32", "float64"):
         cfg = CkeConfig(dtype=dtype, device_init=True)
         d = cp.init_data(cfg, dev)
@@ -1577,8 +1701,8 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--times", metavar="OUT", help="phases 1-2, then time K12, "
-                    "the MPDATA step kernel and the masked kernel and save their "
+    ap.add_argument("--times", metavar="OUT", help="phases 1-2, then time K3, K13, "
+                    "K12, the MPDATA step kernel and the masked kernel and save their "
                     "outputs to OUT")
     ap.add_argument("--against", metavar="REF", help="with --times: hold those "
                     "outputs to the ones saved in REF (bitwise; K2 and K9 within "
@@ -1771,9 +1895,16 @@ def main() -> int:
         per = row.get("steps_timed", 1) if units is not None else 1
         units = row[f"launches_{size}"] if units is None else units
         lost[k] = (units, units * (row["ms"] - row["bound_ms"]) / per)
+    # the queue's rule: a kernel redesigned once is not taken again, and one
+    # at half its bound or better is left alone
     for k, (units, ms) in sorted(lost.items(), key=lambda kv: -kv[1][1]):
+        row = kernels[order.index(k)]
+        rule = (f"redesigned PR {REDESIGNED[k][0]}, not taken again" if k in REDESIGNED
+                else "at half its bound or better, left alone"
+                if row["bound_ms"] >= row["ms"] / 2 else "queued")
         print(f"[7 rank] {k}: {units} {'steps' if k in STEPPED else 'launches'} x "
-              f"(ms - bound ms) per {'step' if k in STEPPED else 'launch'} = {ms:.1f} ms")
+              f"(ms - bound ms) per {'step' if k in STEPPED else 'launch'} = {ms:.1f} ms"
+              f" ({rule})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

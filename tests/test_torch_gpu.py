@@ -1,6 +1,7 @@
 """Tests of the port that need the card: each hand-written kernel against
 its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
-K12, K13 at ragged shapes and K12 on adversarial connectivity, K14, K19 and the rowchain kernels K15-K18 on
+K12, K13 at ragged shapes, K3 off 16-byte alignment and K12 on
+adversarial connectivity, K14, K19 and the rowchain kernels K15-K18 on
 small and odd rings and tori (the tensor-core bf16x3 forms of K14 and the
 rowchain step also at ragged m-tiles and across the step's row tiles), K4,
 K5, the staged MPDATA kernel behind K6, K7 and K8, K9 and K10, the
@@ -184,13 +185,16 @@ def _cke_cases(d, c3):
     return cases
 
 
-@pytest.mark.parametrize("geom", [(130, 40, 21, 6), (300, 700, 100, 10)])
+@pytest.mark.parametrize("geom", [(130, 40, 21, 6), (300, 700, 100, 10),
+                                  (1000, 3000, 129, 10)])
 @pytest.mark.parametrize("duplicates", [False, True])
 def test_cke_kernels_match_plain(cuda, geom, duplicates):
     """K3, K11, K12 (and its bf16 form) and K13 against their plain
-    versions at ragged shapes (levels past a lane's first 32), with and
+    versions at ragged shapes (levels past a lane's first 32; at 129 levels
+    several edge tiles of K3 and K13, more than one 16-byte level group a
+    row, a ragged last group and three of K13's 64-level chunks), with and
     without duplicate cells per edge; the counter rises by one per call.
-    K3, K11 and K13 are bitwise equal to plain at f64."""
+    K3 and K13 are bitwise equal to plain at f32 and f64, K11 at f64."""
     e, c, k, a = geom
     cfg = with_overrides(CkeConfig(), nedges=e, ncells=c, nvertlevels=k,
                          nadv=a)
@@ -213,7 +217,35 @@ def test_cke_kernels_match_plain(cuda, geom, duplicates):
                 assert not bitwise or torch.equal(out, ref), name
                 assert pointwise_check(out, ref, cfg.errtol)[0] == 0, name
             else:
+                assert name not in ("K3", "K13") or torch.equal(out, ref), name
                 assert rel_l1(out, ref) < 1e-6, name
+
+
+def test_cke_rows_off_alignment_matches_plain(cuda):
+    """K3 on a table and edge fields that start 4 bytes past a 16-byte
+    boundary (contiguous views one value into their storage) reads and
+    writes its levels one by one: bitwise the plain version, f32 and f64."""
+    cfg = with_overrides(CkeConfig(), nedges=300, ncells=700, nvertlevels=100,
+                         nadv=10)
+    host = cp.init_data(cfg)
+    for dtype in (torch.float32, torch.float64):
+        d = host.to(cuda, dtype)
+        c3 = coef3_of(with_overrides(cfg, dtype=str(dtype)[6:]))
+
+        def shifted(x):
+            store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+            store[1:] = x.reshape(-1)
+            return store[1:].view(x.shape)
+
+        t, ntf, advm = (shifted(x) for x in (d.tracer * d.cell_mask, d.ntf,
+                                              d.adv_mask))
+        assert t.data_ptr() % 16 != 0 and t.is_contiguous()
+        args = (d.adv_cells, d.adv_coefs, d.adv_coefs3, t, ntf, advm, c3)
+        before = krows.cke_rows.launches
+        out = krows.cke_rows(*args)
+        torch.cuda.synchronize()
+        assert krows.cke_rows.launches == before + 1
+        assert torch.equal(out, krows.cke_rows_plain(*args))
 
 
 def _adversarial_cells(e, c, a, rng):
