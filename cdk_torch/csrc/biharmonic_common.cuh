@@ -1,6 +1,6 @@
-// Arithmetic shared by the biharmonic kernels (K1, K14/K19, K15-K18): one
-// element's 16x16 operator applied to the 16 GLL values of one column,
-// exact ("highest") or as bf16x3, in the one order their plain versions
+// Arithmetic shared by the biharmonic kernels (K1, K14-K19): one element's
+// 16x16 operator applied to the 16 GLL values of one column, exact
+// ("highest") or as bf16x3, in the one order their plain versions
 // (operator.apply_operator) are held to.
 //
 // bf16x3 splits the operator and the column into bf16 hi/lo parts and sums
@@ -13,13 +13,14 @@
 //    their plain versions).  The operator sits in shared memory as one plane
 //    (exact, or the hi part) with the lo plane `lo_off` values further on,
 //    read as warp-wide broadcasts; the compiler makes each four entries of a
-//    row one 16-byte LDS.128 (two for f64).  K1, K14's and the rowchain step's
-//    exact forms, K15, K17 and K19 use it (and K1, K15, K17 and K19 for
-//    bf16x3 too).
+//    row one 16-byte LDS.128 (two for f64).  K1 (both forms) and the exact
+//    forms of K14-K19 use it, the DSS kernels with `exchange`, one assembly
+//    pass through shared memory.
 //  - tc::: bf16x3 on the tensor cores (mma.sync m16n8k16, bf16 operands,
-//    f32 accumulators) for K14's and the rowchain step's bf16x3 forms.  A
-//    warp owns one element and 16-column m-tiles of the transposed product
-//    out^T (columns x points) = v^T (columns x 16) . A^T.  Lane (g, t) =
+//    f32 accumulators) for the bf16x3 forms of K14, the rowchain kernels
+//    (K15-K18) and K19.  A warp owns one element and 16-column m-tiles of
+//    the transposed product out^T (columns x points) = v^T (columns x 16) .
+//    A^T.  Lane (g, t) =
 //    (lane / 4, lane % 4) holds points 2t, 2t+1, 8+2t, 9+2t of columns g and
 //    g+8 of each m-tile: that is the A fragment of the product and also the
 //    layout of its accumulators, so a chain of applications stays in
@@ -49,10 +50,10 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Rows FIRST, FIRST+STRIDE, ... (N of them) of op.v.
-template <typename T, bool X3, int FIRST = 0, int STRIDE = 1, int N = NPTS>
+// o = op.v
+template <typename T, bool X3>
 __device__ __forceinline__ void op_rows(const T* __restrict__ op, int lo_off,
-                                        const T v[NPTS], T o[N]) {
+                                        const T v[NPTS], T o[NPTS]) {
   if constexpr (X3) {
     float qh[NPTS], ql[NPTS];
 #pragma unroll
@@ -61,8 +62,7 @@ __device__ __forceinline__ void op_rows(const T* __restrict__ op, int lo_off,
       ql[p] = bf16_round(v[p] - qh[p]);
     }
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int r = FIRST + k * STRIDE;
+    for (int r = 0; r < NPTS; ++r) {
       float hh = 0.f, hl = 0.f, lh = 0.f;
 #pragma unroll
       for (int p = 0; p < NPTS; ++p) {
@@ -70,16 +70,15 @@ __device__ __forceinline__ void op_rows(const T* __restrict__ op, int lo_off,
         hl = fmaf(op[r * NPTS + p], ql[p], hl);
         lh = fmaf(op[lo_off + r * NPTS + p], qh[p], lh);
       }
-      o[k] = (hh + hl) + lh;
+      o[r] = (hh + hl) + lh;
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int r = FIRST + k * STRIDE;
+    for (int r = 0; r < NPTS; ++r) {
       T acc = T(0);
 #pragma unroll
       for (int p = 0; p < NPTS; ++p) acc = fma(op[r * NPTS + p], v[p], acc);
-      o[k] = acc;
+      o[r] = acc;
     }
   }
 }
@@ -106,6 +105,34 @@ __device__ __forceinline__ void stage(T* plane0, int lo_off, int i, T l) {
     plane0[lo_off + i] = bf16_round(l - hi);
   } else {
     plane0[i] = l;
+  }
+}
+
+// One assembly pass over window element y, column x: the points P0 +
+// k*STRIDE go to side0 and P3 + k*STRIDE to side3 (k < NP); then the P0
+// points gain element lo's side3 values and the P3 points element hi's side0
+// values (zeros where that neighbour is outside the window).
+template <typename T, int P0, int P3, int STRIDE>
+__device__ __forceinline__ void exchange(T v[NPTS], T* side0, T* side3, int x,
+                                         int y, int tc, int lo, bool has_lo,
+                                         int hi, bool has_hi) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    side0[(y * NP + k) * tc + x] = v[P0 + k * STRIDE];
+    side3[(y * NP + k) * tc + x] = v[P3 + k * STRIDE];
+  }
+  __syncthreads();
+  T from_lo[NP], from_hi[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    from_lo[k] = has_lo ? side3[(lo * NP + k) * tc + x] : T(0);
+    from_hi[k] = has_hi ? side0[(hi * NP + k) * tc + x] : T(0);
+  }
+  __syncthreads();  // every read done before the next pass writes
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    v[P0 + k * STRIDE] += from_lo[k];
+    v[P3 + k * STRIDE] += from_hi[k];
   }
 }
 
@@ -207,6 +234,39 @@ __device__ __forceinline__ void add_jside(float x[8], const float* side, int str
         x[4 * r + 2 * h + 1] += v;
       else
         x[4 * r + 2 * h] += v;
+    }
+}
+
+// The DSS i pass in this layout: lanes t = 0, 1 hold i = 0
+// points (q = 0, 1: points 2t, 2t+1), lanes t = 2, 3 the i = np-1 points (q
+// = 2, 3: points 8+2t, 9+2t), j = 2(t&1) + (q&1).  put_iside writes this
+// lane's boundary values of one m-tile to side[row * stride + col], row =
+// (t&1) + 2(q&1) (a fixed permutation of j that keeps one store's banks
+// distinct), col = c16 + 8r; add_iside adds the neighbour's (its other side)
+// to them.
+__device__ __forceinline__ void put_iside(const float x[8], float* side, int stride,
+                                          int c16) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      side[((t & 1) + 2 * h) * stride + c16 + 8 * r] = (t >> 1) ? x[4 * r + 2 + h]
+                                                                 : x[4 * r + h];
+}
+
+__device__ __forceinline__ void add_iside(float x[8], const float* side, int stride,
+                                          int c16) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v = side[((t & 1) + 2 * h) * stride + c16 + 8 * r];
+      if (t >> 1)
+        x[4 * r + 2 + h] += v;
+      else
+        x[4 * r + h] += v;
     }
 }
 

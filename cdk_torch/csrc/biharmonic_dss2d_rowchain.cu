@@ -31,47 +31,51 @@
 // some) or as ex rows.  A row of out or tmp is read only after a step of
 // the launch wrote it.  j stays mod ey in the row.
 //
-// The step (step_kernel; K16, K18, K16p, K18p): a tile is ELEMS elements of
-// one element row and TILE columns, plus one halo element on each side;
-// warp y of the block (SLOTS = ELEMS + 2 warps) takes element b0 - 1 + y mod
-// ey.  Each warp computes its own element's ipass(t).w and F in full,
-// reading t once, writes its j = 0 and j = np-1 output points to shared
-// memory and, after one barrier, the owned warps add their neighbours'
-// points and store t'.  A production row of 72 is three tiles at f32
-// (ELEMS 24: F on 26 elements for 24 owned, 1.08x); f64 takes 8.  The small
-// tori of the tests (ey < ELEMS + 2) put one element in a tile more than
-// once; each copy computes the same values and only the owned one is
-// stored.  The blocks are persistent, one per SM (26 warps at <= 72
-// registers), and each warp copies what it needs of its next tile (its t
-// rows, the two i-neighbours' boundary rows, its operator and inverse mass)
+// One kernel, step_kernel, in three modes: the step (K16, K18, K16p, K18p)
+// and the two bridges (K15; K17 and its padded K17p).  A tile is TILE
+// columns of ELEMS + 2 consecutive elements of one element row, a warp
+// each.  In the step and bridge_in the ELEMS inner warps own their elements
+// and the two outer ones are their halo (warp y takes element b0 - 1 + y mod
+// ey): each warp computes its own element in full (the step ipass(t).w and
+// F, reading t once; bridge_in A q), writes its j = 0 and j = np-1 output
+// points to shared memory and, after one barrier, the owned warps add their
+// neighbours' points and store.  bridge_out reads the i-neighbours' boundary
+// rows as the step does, applies A once and stores, with no exchange and no
+// barrier, so each of its warps owns its element (warp y takes b0 + y).
+// Tiles at f32: 24 owned, so a production row of 72 is three tiles (the
+// step's F on 26 elements for 24 owned, 1.08x); bridge_out 24 in bf16x3 and
+// 18 exact (ELEMS 22 and 16: at 24 warps its FMA chain spills); f64 8
+// (bridge_out 10).  The small tori of the tests (ey < ELEMS + 2) put one
+// element in a tile more than once; each copy computes the same values and
+// only the owned one is stored.  The blocks are persistent, one per SM (26
+// warps at <= 72 registers for the step), and each warp copies what it
+// needs of its next tile (its rows of the input, the two i-neighbours'
+// boundary rows where the mode has an ipass, its operator and inverse mass)
 // into its own part of shared memory with cp.async while it computes this
 // one; the side buffers are double-buffered, so a tile takes one barrier.
-// The bf16x3 forms run F on the tensor cores (bih::tc: the warp's 32
-// columns as two m-tiles, the operator's hi/lo B fragments in registers, t
+// The bf16x3 forms run on the tensor cores (bih::tc: the warp's 32 columns
+// as two m-tiles, the operator's hi/lo B fragments in registers, the input
 // read in fragment order).  The exact and f64 forms keep one thread per
-// column and the FMA chain in its order (bit for bit the plain version),
-// the operator read from the warp's copy as 16-byte broadcasts.  Depth k
-// (K18): k chained steps in one cooperative launch, the grid synchronised
-// between steps and t ping-ponged between `out` and a scratch buffer; each
-// step is the same arithmetic as a depth-1 launch, so the result equals k
-// depth-1 launches bit for bit.
+// column and the FMA chain in its order (bit for bit the plain version), the
+// operator read from the warp's copy as 16-byte broadcasts.  Depth k (K18):
+// k chained steps in one cooperative launch, the grid synchronised between
+// steps and t ping-ponged between `out` and a scratch buffer; each step is
+// the same arithmetic as a depth-1 launch, so the result equals k depth-1
+// launches bit for bit.  The padded bridge_out (K17p) takes its
+// i-neighbours from the pad rows through pass_of, with the arithmetic of
+// K17, so with the torus's own rows as the pad it equals K17 bit for bit.
 //
-// The bridges (bridge_kernel; K15, K17, K17p) keep one thread per (element,
-// column) in tiles of BRIDGE_ELEMS elements: bridge_out has no j exchange,
-// and bridge_in RECOMPUTES the four boundary values it needs from each
-// j-neighbour (rows of A q), which needs no exchange and no barrier.
-//
-// Bound: at production the step streams t in and t' out (2 x 249 MB at
-// f32, 0.149 ms at 3.35 TB/s); its operations, 256 FMAs per column per
-// element with A^2 (512 with A.A; bf16x3: three tensor-core products each,
-// plus ~80 f32 operations per application for the splits and sums), take
-// less.  Every step makes one pass through device memory, so depth k saves
-// launches, not passes: a depth-4 launch cannot go under ~0.6 ms without
-// blocking steps in time (not done: a row is 4.6 KB per column, and k halo
-// rows per side of a useful tile do not fit in 227 KB).  What holds a tile
-// back now: one block per SM, so its barrier and the end of its copies
-// stall the whole SM, and the i-neighbours' rows add half again to the
-// bytes each tile reads (from L2).
+// Bound: at production each launch streams its input in and its output out
+// (2 x 249 MB at f32, 0.149 ms at 3.35 TB/s); the operations, 256 FMAs per
+// column per element and application (bf16x3: three tensor-core products
+// plus ~80 f32 operations for the splits and sums), take less.  Every step
+// makes one pass through device memory, so depth k saves launches, not
+// passes: a depth-4 launch cannot go under ~0.6 ms without blocking steps in
+// time (not done: a row is 4.6 KB per column, and k halo rows per side of a
+// useful tile do not fit in 227 KB).  What holds a tile back now: one block
+// per SM, so its barrier and the end of its copies stall the whole SM, and
+// the i-neighbours' rows add half again to the bytes a step or bridge_out
+// tile reads (from L2).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -106,34 +110,6 @@ __device__ __forceinline__ void ineighbours(int a, const Torus& g, int& au, int&
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void load(const T* f, size_t e, int ncol,
-                                     int c, T v[NPTS]) {
-#pragma unroll
-  for (int p = 0; p < NPTS; ++p) v[p] = f[(e * NPTS + p) * ncol + c];
-}
-
-// d = ipass(t)[a,b] * w: t's i=0 points gain the up row's i=np-1 points,
-// its i=np-1 points the down row's i=0 points.  a is t's row (padded in the
-// padded mode, where the neighbour rows are a -+ 1).
-template <typename T>
-__device__ __forceinline__ void ipass_w(const T* t, const T* wslot,
-                                        int a, int b, int c, Torus g, T d[NPTS]) {
-  int au, ad;
-  ineighbours(a, g, au, ad);
-  const size_t e = (size_t)a * g.ey + b;
-  const size_t eu = (size_t)au * g.ey + b;
-  const size_t ed = (size_t)ad * g.ey + b;
-  load(t, e, g.ncol, c, d);
-#pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    d[j] += t[(eu * NPTS + NPTS - NP + j) * g.ncol + c];
-    d[NPTS - NP + j] += t[(ed * NPTS + j) * g.ncol + c];
-  }
-#pragma unroll
-  for (int p = 0; p < NPTS; ++p) d[p] *= wslot[p];
-}
-
 // The rows step s of an nsteps launch computes (all ex, or padded r0 ..
 // r0+rows-1), where it reads and writes, and the operators' and dst's row
 // offsets (the operators' row is one less in the padded mode, and dst's p
@@ -160,94 +136,23 @@ __device__ __forceinline__ Pass<T> pass_of(int s, int nsteps, const T* in, T* ou
   return p;
 }
 
-// ---- the bridges: one thread per (element, column) -----------------------
+// ---- the step and the bridges: one warp per element of a row tile -------
 
-constexpr int BRIDGE_ELEMS = 8;  // elements of one element row per block
-constexpr int BRIDGE_SLOTS = BRIDGE_ELEMS + 2;
-
-// One output element (a,b), column c: a is its row in src, ad in dst.  ops:
-// BRIDGE_SLOTS operators (slot s = element (a, b0-1+s mod ey)), lo plane at
-// +lo_off; ws: their inverse masses; sl/sc/sr: the left/own/right slots.
+// The tile of each mode is ELEMS + 2 warps.  The step and bridge_in
+// exchange j boundary points, so a tile of ELEMS owned elements carries one
+// halo element on each side: 24 at f32 (a production row of 72 is three
+// tiles, F on 26 elements for 24 owned), 8 at f64, whose stages would not
+// fit in shared memory at 24.  bridge_out exchanges none, and each of its
+// warps owns its element, 72 = 3 x 24 at f32 bf16x3 (ELEMS 22: 768 threads
+// at <= 80 registers), 72 = 4 x 18 at exact f32 (ELEMS 16: 576 threads at
+// <= 112 registers; its FMA chain spills at 80), 10 at f64.
 template <typename T, bool X3, int MODE>
-__device__ __forceinline__ void item(const T* ops, int lo_off, const T* ws,
-                                     const T* src, T* dst, int a, int ad,
-                                     int b, int c, int sl, int sc, int sr,
-                                     Torus g) {
-  const T* opc = ops + sc * NPTS * NPTS;
-  T u[NPTS];
-  if constexpr (MODE == BRIDGE_OUT) {
-    ipass_w(src, ws + sc * NPTS, a, b, c, g, u);
-    bih::apply<T, X3>(opc, lo_off, u);
-  } else {
-    const int bl = b == 0 ? g.ey - 1 : b - 1;
-    const int br = b == g.ey - 1 ? 0 : b + 1;
-    T x[NPTS], ul[NP], ur[NP];
-    load(src, (size_t)a * g.ey + b, g.ncol, c, u);
-    bih::apply<T, X3>(opc, lo_off, u);
-    load(src, (size_t)a * g.ey + bl, g.ncol, c, x);
-    bih::op_rows<T, X3, NP - 1, NP, NP>(ops + sl * NPTS * NPTS, lo_off, x, ul);
-    load(src, (size_t)a * g.ey + br, g.ncol, c, x);
-    bih::op_rows<T, X3, 0, NP, NP>(ops + sr * NPTS * NPTS, lo_off, x, ur);
-    // jpass
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      u[i * NP] += ul[i];
-      u[i * NP + NP - 1] += ur[i];
-    }
-  }
-  const size_t e = (size_t)ad * g.ey + b;
-#pragma unroll
-  for (int p = 0; p < NPTS; ++p) dst[(e * NPTS + p) * g.ncol + c] = u[p];
-}
-
-// op (ex*ey,16,16) A; w (ex*ey,16); in/out (ex*ey,16,ncol); in the padded
-// mode the row counts of the step's first pass.  A grid-stride loop over
-// tiles of (element row a, BRIDGE_ELEMS elements from b0, TILE columns).
-template <typename T, bool X3, int MODE>
-__global__ void __launch_bounds__(TILE * BRIDGE_ELEMS)
-bridge_kernel(const T* __restrict__ op, const T* __restrict__ w,
-              const T* __restrict__ in, T* out, Torus g) {
-  constexpr int PLANES = X3 ? 2 : 1;
-  constexpr int LO = BRIDGE_SLOTS * NPTS * NPTS;
-  __shared__ __align__(16) T ops[PLANES * LO];
-  __shared__ T ws[BRIDGE_SLOTS * NPTS];
-  const int chunks = (g.ey + BRIDGE_ELEMS - 1) / BRIDGE_ELEMS;
-  const int ctiles = (g.ncol + TILE - 1) / TILE;
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  const Pass<T> ps = pass_of<T>(0, 1, in, out, nullptr, g);
-  const long ntiles = (long)ps.rows * chunks * ctiles;
-  for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int ct = static_cast<int>(tile % ctiles);
-    const long rest = tile / ctiles;
-    const int b0 = static_cast<int>(rest % chunks) * BRIDGE_ELEMS;
-    const int a = ps.r0 + static_cast<int>(rest / chunks);
-    const size_t aop = static_cast<size_t>(a - ps.op_off);
-    __syncthreads();  // the previous tile is done with ops and ws
-    for (int i = tid; i < LO; i += TILE * BRIDGE_ELEMS) {
-      const int bs = wrap(b0 - 1 + i / (NPTS * NPTS), g.ey);
-      bih::stage<T, X3>(ops, LO, i, op[(aop * g.ey + bs) * NPTS * NPTS + i % (NPTS * NPTS)]);
-    }
-    if constexpr (MODE == BRIDGE_OUT) {
-      for (int i = tid; i < BRIDGE_SLOTS * NPTS; i += TILE * BRIDGE_ELEMS)
-        ws[i] = w[(aop * g.ey + wrap(b0 - 1 + i / NPTS, g.ey)) * NPTS + i % NPTS];
-    }
-    __syncthreads();
-    const int b = b0 + threadIdx.y;
-    const int c = ct * TILE + threadIdx.x;
-    if (b < g.ey && c < g.ncol)
-      item<T, X3, MODE>(ops, LO, ws, ps.src, ps.dst, a, a - ps.dst_off, b, c,
-                        threadIdx.y, threadIdx.y + 1, threadIdx.y + 2, g);
-  }
-}
-
-// ---- the step: one warp per element of a row tile -------------------------
-
-// Owned elements of one element row per tile: 24 at f32 (a production row
-// of 72 is three tiles, F on 26 elements for 24 owned), 8 at f64, whose
-// stages would not fit in shared memory at 24.
-template <typename T>
 constexpr int step_elems() {
-  return sizeof(T) == 8 ? 8 : 24;
+  return sizeof(T) == 8 ? 8 : MODE != BRIDGE_OUT ? 24 : X3 ? 22 : 16;
+}
+template <int MODE, int ELEMS>
+__host__ __device__ constexpr int owned_elems() {
+  return MODE == BRIDGE_OUT ? ELEMS + 2 : ELEMS;
 }
 // a side buffer row (one boundary point of one slot) of the bf16x3 step:
 // TILE columns and 8 spare values, so one store or read hits distinct banks;
@@ -263,76 +168,89 @@ constexpr int OP_BUF = NPTS * NPTS + NPTS;
 constexpr int WARP_STAGE = STAGE_ROWS * STAGE_STRIDE + 2 * OP_BUF;
 
 // Shared memory of the step, in values of T: the warps' stages [SLOTS]
-// [WARP_STAGE] (warp y's is its own), then the side buffers [2][side]
-// [SLOTS][NP][stride] (side 0 the j = 0 points, side 1 the j = np-1 points;
-// the bf16x3 form starts side 1 16 values on, half the banks away).
-template <typename T, bool X3, int ELEMS>
+// [WARP_STAGE] (warp y's is its own), then, where the mode has a j
+// exchange, the side buffers [2][side][SLOTS][NP][stride] (side 0 the j = 0
+// points, side 1 the j = np-1 points; the bf16x3 form starts side 1 16
+// values on, half the banks away).
+template <typename T, bool X3, int ELEMS, int MODE>
 struct StepSmem {
   static constexpr int SLOTS = ELEMS + 2;
   static constexpr int STRIDE = X3 ? X3_STRIDE : TILE;
   static constexpr int SIDE = SLOTS * NP * STRIDE + (X3 ? 16 : 0);
-  static constexpr size_t BYTES = sizeof(T) * (SLOTS * WARP_STAGE + 4 * SIDE);
+  static constexpr size_t BYTES =
+      sizeof(T) * (SLOTS * WARP_STAGE + (MODE == BRIDGE_OUT ? 0 : 4 * SIDE));
 };
 
-// op (ex*ey,16,16): A, or A^2 for a precomposed step; w (ex*ey,16);
-// in/out/tmp (ex*ey,16,ncol); in the padded mode the row counts above.
-// Persistent: block b takes tiles b, b + gridDim.x, ... of (element row a,
-// ELEMS elements from b0, TILE columns), ct fastest, and each warp copies
-// what it needs of the next tile of the step (its rows of t, its operator
-// and inverse mass) into its own stage (cp.async) while it computes this
-// one, so a tile takes one barrier (the j exchange, through double-buffered
-// side buffers); nsteps > 1 only under a cooperative launch.  A deep launch
+// op (ex*ey,16,16): A, or A^2 for a precomposed step; w (ex*ey,16) (bridge_in
+// reads none); in/out/tmp (ex*ey,16,ncol); in the padded mode the row counts
+// above.  MODE: STEP t' = jpass(F(ipass(t).w)), BRIDGE_IN t = jpass(A q),
+// BRIDGE_OUT q = A(ipass(t).w).  Persistent: block b takes tiles b, b +
+// gridDim.x, ... of (element row a, owned_elems elements from b0, TILE
+// columns), ct fastest, and each warp copies what it needs of the next tile
+// of the step (its rows of in, the i-neighbours' boundary rows where the
+// mode has an ipass, its operator and inverse mass) into its own stage
+// (cp.async) while it computes this one, so a tile takes one barrier (the j
+// exchange, through double-buffered side buffers) or, in bridge_out, none;
+// nsteps > 1 only for the step, under a cooperative launch.  A deep launch
 // reads, in later steps, the out and tmp it writes, so no pointer into them
 // is __restrict__, and no copy reaches across the grid sync.
-template <typename T, bool X3, bool SQ, int ELEMS>
+template <typename T, bool X3, bool SQ, int ELEMS, int MODE>
 __global__ void __launch_bounds__(TILE * (ELEMS + 2))
 step_kernel(const T* __restrict__ op, const T* __restrict__ w,
             const T* __restrict__ in, T* out, T* tmp, Torus g, int nsteps) {
-  using S = StepSmem<T, X3, ELEMS>;
+  using S = StepSmem<T, X3, ELEMS, MODE>;
+  constexpr int OWN = owned_elems<MODE, ELEMS>();
+  constexpr int FIRST = MODE == BRIDGE_OUT ? 0 : 1;  // the first owned slot
+  constexpr bool IPASS = MODE != BRIDGE_IN;  // i-neighbours' rows, times w
+  constexpr bool JPASS = MODE != BRIDGE_OUT;  // the j exchange
+  constexpr int APPLIES = MODE == STEP && !SQ ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int y = threadIdx.y, lane = threadIdx.x;
   T* stage = smem + y * WARP_STAGE;
   T* opbuf = stage + STAGE_ROWS * STAGE_STRIDE;  // [2][OP_BUF]
   T* sides = smem + S::SLOTS * WARP_STAGE;
-  const int chunks = (g.ey + ELEMS - 1) / ELEMS;
+  const int chunks = (g.ey + OWN - 1) / OWN;
   const int ctiles = (g.ncol + TILE - 1) / TILE;
   int buf = 0;  // the side buffers and operator buffer this tile uses
 
   for (int s = 0; s < nsteps; ++s) {
     const Pass<T> ps = pass_of(s, nsteps, in, out, tmp, g);
     const long ntiles = (long)ps.rows * chunks * ctiles;
-    // the tile's coordinates: column tile, first owned element, t's row
+    // the tile's coordinates: column tile, first owned element, in's row
     auto coords = [&](long tile, int& ct, int& b0, int& a) {
       ct = static_cast<int>(tile % ctiles);
       const long rest = tile / ctiles;
-      b0 = static_cast<int>(rest % chunks) * ELEMS;
+      b0 = static_cast<int>(rest % chunks) * OWN;
       a = ps.r0 + static_cast<int>(rest / chunks);
     };
-    // warp y's stage for `tile`: this lane's column of its t rows, and its
-    // operator and inverse mass into operator buffer `into`
+    // warp y's stage for `tile`: this lane's column of its rows of in, and
+    // its operator and inverse mass into operator buffer `into`
     auto prefetch = [&](long tile, int into) {
       if (tile >= ntiles) return;
-      int ct, b0, a, au, ad;
+      int ct, b0, a;
       coords(tile, ct, b0, a);
-      ineighbours(a, g, au, ad);
-      const int b = wrap(b0 - 1 + y, g.ey);
+      const int b = wrap(b0 - FIRST + y, g.ey);
       const int c = ct * TILE + lane;
       const bool live = c < g.ncol;
       const int cc = live ? c : 0;
       const T* own = ps.src + ((size_t)a * g.ey + b) * NPTS * g.ncol + cc;
-      const T* up = ps.src + ((size_t)au * g.ey + b) * NPTS * g.ncol + cc;
-      const T* down = ps.src + ((size_t)ad * g.ey + b) * NPTS * g.ncol + cc;
 #pragma unroll
       for (int p = 0; p < NPTS; ++p)
         bih::cp_async<sizeof(T)>(stage + p * STAGE_STRIDE + lane, own + (size_t)p * g.ncol,
                                  live);
+      if constexpr (IPASS) {
+        int au, ad;
+        ineighbours(a, g, au, ad);
+        const T* up = ps.src + ((size_t)au * g.ey + b) * NPTS * g.ncol + cc;
+        const T* down = ps.src + ((size_t)ad * g.ey + b) * NPTS * g.ncol + cc;
 #pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        bih::cp_async<sizeof(T)>(stage + (NPTS + j) * STAGE_STRIDE + lane,
-                                 up + (size_t)(NPTS - NP + j) * g.ncol, live);
-        bih::cp_async<sizeof(T)>(stage + (NPTS + NP + j) * STAGE_STRIDE + lane,
-                                 down + (size_t)j * g.ncol, live);
+        for (int j = 0; j < NP; ++j) {
+          bih::cp_async<sizeof(T)>(stage + (NPTS + j) * STAGE_STRIDE + lane,
+                                   up + (size_t)(NPTS - NP + j) * g.ncol, live);
+          bih::cp_async<sizeof(T)>(stage + (NPTS + NP + j) * STAGE_STRIDE + lane,
+                                   down + (size_t)j * g.ncol, live);
+        }
       }
       // the operator and inverse mass as 16-byte pieces
       const size_t eo = (size_t)(a - ps.op_off) * g.ey + b;
@@ -340,7 +258,7 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
       T* ob = opbuf + into * OP_BUF;
       for (int i = lane * PER16; i < NPTS * NPTS; i += TILE * PER16)
         bih::cp_async16(ob + i, op + eo * NPTS * NPTS + i);
-      if (lane * PER16 < NPTS)
+      if (IPASS && lane * PER16 < NPTS)
         bih::cp_async16(ob + NPTS * NPTS + lane * PER16, w + eo * NPTS + lane * PER16);
       bih::cp_async_commit();
     };
@@ -349,10 +267,12 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
     for (long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       int ct, b0, a;
       coords(tile, ct, b0, a);
-      const int n_own = g.ey - b0 < ELEMS ? g.ey - b0 : ELEMS;
-      const int b = wrap(b0 - 1 + y, g.ey);
-      // slots 1..n_own are owned; 0 and n_own + 1 their outer neighbours
-      const bool need = y <= n_own + 1, owned = y >= 1 && y <= n_own;
+      const int n_own = g.ey - b0 < OWN ? g.ey - b0 : OWN;
+      const int b = wrap(b0 - FIRST + y, g.ey);
+      // with the j exchange slots 1..n_own are owned and 0 and n_own + 1
+      // their outer neighbours; without it slots 0..n_own-1 are owned
+      const bool owned = y >= FIRST && y < FIRST + n_own;
+      const bool need = JPASS ? y <= n_own + 1 : owned;
       const size_t ed = (size_t)(a - ps.dst_off) * g.ey + b;  // in dst
       T* side = sides + buf * 2 * S::SIDE;
       const T* opc = opbuf + buf * OP_BUF;  // this tile's operator, then w
@@ -374,9 +294,13 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
           for (int k = 0; k < 8; ++k) {
             const int p = pt(t, k & 3), col = 16 * m + 8 * (k >> 2) + gq;
             float v = stage[p * STAGE_STRIDE + col];
-            if ((t < 2) == ((k & 3) < 2))
-              v += stage[(t < 2 ? NPTS + p : NPTS + NP + p - (NPTS - NP)) * STAGE_STRIDE + col];
-            x[m][k] = v * wc[p];
+            if constexpr (IPASS) {
+              if ((t < 2) == ((k & 3) < 2))
+                v += stage[(t < 2 ? NPTS + p : NPTS + NP + p - (NPTS - NP)) * STAGE_STRIDE
+                           + col];
+              v *= wc[p];
+            }
+            x[m][k] = v;
           }
         const bih::tc::Op F = bih::tc::load_op(opc);
         __syncwarp();  // every lane has read the stage before it is refilled
@@ -384,22 +308,25 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
         if (need) {
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
-            if constexpr (!SQ) bih::tc::apply(F, x[m]);
+            if constexpr (APPLIES == 2) bih::tc::apply(F, x[m]);
             bih::tc::apply(F, x[m]);
-            bih::tc::put_jside(x[m], side + (t & 1) * S::SIDE + y * NP * S::STRIDE,
-                               S::STRIDE, 16 * m + gq);
+            if constexpr (JPASS)
+              bih::tc::put_jside(x[m], side + (t & 1) * S::SIDE + y * NP * S::STRIDE,
+                                 S::STRIDE, 16 * m + gq);
           }
         }
-        __syncthreads();  // the other buffer serves the next tile
+        if constexpr (JPASS) __syncthreads();  // the other buffer serves the next tile
         if (owned) {
-          // jpass: j = 0 points gain the left slot's j = np-1 points, j = np-1
-          // points the right slot's j = 0 points
-          const T* nb = side + (1 - (t & 1)) * S::SIDE
-                        + ((t & 1) ? y + 1 : y - 1) * NP * S::STRIDE;
           const int c0 = ct * TILE + gq;
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
-            bih::tc::add_jside(x[m], nb, S::STRIDE, 16 * m + gq);
+            if constexpr (JPASS) {
+              // jpass: j = 0 points gain the left slot's j = np-1 points, j =
+              // np-1 points the right slot's j = 0 points
+              const T* nb = side + (1 - (t & 1)) * S::SIDE
+                            + ((t & 1) ? y + 1 : y - 1) * NP * S::STRIDE;
+              bih::tc::add_jside(x[m], nb, S::STRIDE, 16 * m + gq);
+            }
 #pragma unroll
             for (int k = 0; k < 8; ++k) {
               const int c = c0 + bih::tc::MCOLS * m + 8 * (k >> 2);
@@ -408,39 +335,47 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
           }
         }
       } else {
-        // d = ipass(t) * w, in ipass_w's order
+        // d = ipass(t) * w: the i = 0 points gain the row above's, then the
+        // i = np-1 points the row below's, as the plain version sums
         T u[NPTS];
 #pragma unroll
         for (int p = 0; p < NPTS; ++p) u[p] = stage[p * STAGE_STRIDE + lane];
+        if constexpr (IPASS) {
 #pragma unroll
-        for (int j = 0; j < NP; ++j) {
-          u[j] += stage[(NPTS + j) * STAGE_STRIDE + lane];
-          u[NPTS - NP + j] += stage[(NPTS + NP + j) * STAGE_STRIDE + lane];
+          for (int j = 0; j < NP; ++j) {
+            u[j] += stage[(NPTS + j) * STAGE_STRIDE + lane];
+            u[NPTS - NP + j] += stage[(NPTS + NP + j) * STAGE_STRIDE + lane];
+          }
         }
         __syncwarp();  // every lane has read the stage before it is refilled
         prefetch(tile + gridDim.x, buf ^ 1);
         const int c = ct * TILE + lane;
         const bool live = c < g.ncol;
         if (need) {
+          if constexpr (IPASS) {
 #pragma unroll
-          for (int p = 0; p < NPTS; ++p) u[p] *= wc[p];
+            for (int p = 0; p < NPTS; ++p) u[p] *= wc[p];
+          }
           // F: A twice, or A^2 once; a loop, not unrolled (unrolled, the
           // two applications of the A.A form spill or run short of registers)
 #pragma unroll 1
-          for (int r = 0; r < (SQ ? 1 : 2); ++r) bih::apply<T, false>(opc, 0, u);
+          for (int r = 0; r < APPLIES; ++r) bih::apply<T, false>(opc, 0, u);
+          if constexpr (JPASS) {
 #pragma unroll
-          for (int i = 0; i < NP; ++i) {
-            side[(y * NP + i) * TILE + lane] = u[i * NP];
-            side[S::SIDE + (y * NP + i) * TILE + lane] = u[i * NP + NP - 1];
+            for (int i = 0; i < NP; ++i) {
+              side[(y * NP + i) * TILE + lane] = u[i * NP];
+              side[S::SIDE + (y * NP + i) * TILE + lane] = u[i * NP + NP - 1];
+            }
           }
         }
-        __syncthreads();  // the other buffer serves the next tile
+        if constexpr (JPASS) __syncthreads();  // the other buffer serves the next tile
         if (owned && live) {
-          // jpass
+          if constexpr (JPASS) {
 #pragma unroll
-          for (int i = 0; i < NP; ++i) {
-            u[i * NP] += side[S::SIDE + ((y - 1) * NP + i) * TILE + lane];
-            u[i * NP + NP - 1] += side[((y + 1) * NP + i) * TILE + lane];
+            for (int i = 0; i < NP; ++i) {
+              u[i * NP] += side[S::SIDE + ((y - 1) * NP + i) * TILE + lane];
+              u[i * NP + NP - 1] += side[((y + 1) * NP + i) * TILE + lane];
+            }
           }
 #pragma unroll
           for (int p = 0; p < NPTS; ++p) ps.dst[(ed * NPTS + p) * g.ncol + c] = u[p];
@@ -452,12 +387,13 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
   }
 }
 
-template <typename T, bool X3, bool SQ, int ELEMS>
+template <typename T, bool X3, bool SQ, int ELEMS, int MODE>
 int launch_step(const T* op, const T* w, const T* in, T* out, T* tmp, Torus g,
                 int nsteps, cudaStream_t st) {
-  auto kern = step_kernel<T, X3, SQ, ELEMS>;
-  constexpr size_t smem = StepSmem<T, X3, ELEMS>::BYTES;
+  auto kern = step_kernel<T, X3, SQ, ELEMS, MODE>;
+  constexpr size_t smem = StepSmem<T, X3, ELEMS, MODE>::BYTES;
   constexpr int THREADS = TILE * (ELEMS + 2);
+  constexpr int OWN = owned_elems<MODE, ELEMS>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   // persistent: as many blocks as are resident at once (every block
@@ -471,7 +407,7 @@ int launch_step(const T* op, const T* w, const T* in, T* out, T* tmp, Torus g,
   if (err != cudaSuccess) return static_cast<int>(err);
   // the first step's rows: the most tiles of any step
   const long ntiles = (long)(g.pad ? g.ex + 2 * g.pad - 2 : g.ex)
-                      * ((g.ey + ELEMS - 1) / ELEMS) * ((g.ncol + TILE - 1) / TILE);
+                      * ((g.ey + OWN - 1) / OWN) * ((g.ncol + TILE - 1) / TILE);
   const long cap = (long)sms * per_sm;
   const unsigned blocks = static_cast<unsigned>(ntiles < cap ? ntiles : cap);
   if (nsteps == 1) {
@@ -498,24 +434,21 @@ int dispatch(int mode, int sq, const void* op, const void* w, const void* in,
   const T* w_ = static_cast<const T*>(w);
   const T* in_ = static_cast<const T*>(in);
   T* out_ = static_cast<T*>(out);
+  T* tmp_ = static_cast<T*>(tmp);
   auto st = static_cast<cudaStream_t>(stream);
-  if (mode == STEP) {
-    T* tmp_ = static_cast<T*>(tmp);
-    return sq ? launch_step<T, X3, true, step_elems<T>()>(op_, w_, in_, out_, tmp_, g,
-                                                          nsteps, st)
-              : launch_step<T, X3, false, step_elems<T>()>(op_, w_, in_, out_, tmp_, g,
-                                                           nsteps, st);
+  constexpr int E = step_elems<T, X3, STEP>();
+  switch (mode) {
+    case STEP:
+      return sq ? launch_step<T, X3, true, E, STEP>(op_, w_, in_, out_, tmp_, g, nsteps, st)
+                : launch_step<T, X3, false, E, STEP>(op_, w_, in_, out_, tmp_, g, nsteps, st);
+    case BRIDGE_IN:
+      return launch_step<T, X3, false, E, BRIDGE_IN>(op_, w_, in_, out_, tmp_, g, 1, st);
+    case BRIDGE_OUT:
+      return launch_step<T, X3, false, step_elems<T, X3, BRIDGE_OUT>(), BRIDGE_OUT>(
+          op_, w_, in_, out_, tmp_, g, 1, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (mode != BRIDGE_IN && mode != BRIDGE_OUT) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = pad ? ex + 2 * pad - 2 : ex;
-  const unsigned blocks = static_cast<unsigned>(
-      (long)rows * ((ey + BRIDGE_ELEMS - 1) / BRIDGE_ELEMS) * ((ncol + TILE - 1) / TILE));
-  const dim3 block(TILE, BRIDGE_ELEMS);
-  if (mode == BRIDGE_IN)
-    bridge_kernel<T, X3, BRIDGE_IN><<<blocks, block, 0, st>>>(op_, w_, in_, out_, g);
-  else
-    bridge_kernel<T, X3, BRIDGE_OUT><<<blocks, block, 0, st>>>(op_, w_, in_, out_, g);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

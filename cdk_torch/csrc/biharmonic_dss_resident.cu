@@ -1,58 +1,51 @@
-// K14 and K19: nsteps chained DSS biharmonic steps (apply -> DSS -> apply)
-// for every element, in one launch, with the state resident on chip.  K14
-// assembles over the 1-D element ring, K19 over the 2-D (ex, ey) torus.
+// K14: nsteps chained ring-DSS biharmonic steps (apply -> DSS -> apply) for
+// every element, in one launch, with the state resident on chip.  (K19, the
+// same chain over the 2-D torus, is biharmonic_dss2d_resident.cu.)
 //
 // Replaces cdk_tpu/kernels/biharmonic/pallas_dss_resident.py::
 // _dss_resident_kernel (single-chip caller apply_dss_resident; the
 // window-fed dist callers apply_dss_resident_windowed and
-// apply_dss_resident_windowed_split) and
-// pallas_dss2d_resident.py::_dss2d_resident_kernel (apply_dss2d_resident).
-// The TPU kernels keep a window of centre groups plus halo groups in VMEM,
-// each 8-element group one (128,128) block-diagonal tile, and run the
-// assembly as masked sublane shifts; here each element's operator is used
-// as it is and the neighbour index is explicit.
+// apply_dss_resident_windowed_split).  The TPU kernel keeps a window of
+// centre groups plus halo groups in VMEM, each 8-element group one
+// (128,128) block-diagonal tile, and runs the assembly as masked sublane
+// shifts; here each element's operator is used as it is and the neighbour
+// index is explicit.
 //
 // Windows: columns (q, k) are independent and the DSS couples only
 // neighbouring elements of the same column.  One block owns a window of
-// elements and one tile of 32 columns for the whole launch.  On the ring the
-// window is B + 2h consecutive elements (indices wrap mod nelemd, so a small
-// ring may appear in the window more than once).  Window-fed (a shard of a
-// decomposed ring) the elements are the shard's owned block with an
-// exchanged strip of `strip` >= h elements on each side, three arrays read
-// in place of one wrapped index, and the operators and inverse mass those of
-// the extended block; an element past the strips loads as zero (it lies
-// more than h from every owned element), and only owned elements are
-// stored.  With the shard's own ends as strips (one shard) the windows, and
-// so the results, are bit for bit those of the ring.  On the torus (e =
-// a*ey + b) it is Bi + 2h element rows of rj elements each: whole rows (rj =
-// ey) where 2h+1 of them fit, as in the TPU kernel, so the j assembly wraps
-// inside the window and only the i assembly consumes halo rows; otherwise a
-// rectangle of Bj + 2h elements per row, with halo in j too.  The i
-// assembly sums the j-summed field, so corners collect all four sharers.
-// Each step uses up one halo unit per side (the window's edge elements
-// assemble with zeros), so the centre stays exact while nsteps <= h; the
-// host sets h = nsteps.  Each assembly exchanges only the boundary points
-// through shared memory.  With `precomposed` (ring only) the d-carry chain
-// A.D.(A^2.D)^(n-1).A runs n+1 applications per launch instead of 2n.
+// elements and one tile of 32 columns for the whole launch: B + 2h
+// consecutive elements (indices wrap mod nelemd, so a small ring may appear
+// in the window more than once).  Window-fed (a shard of a decomposed ring)
+// the elements are the shard's owned block with an exchanged strip of
+// `strip` >= h elements on each side, three arrays read in place of one
+// wrapped index, and the operators and inverse mass those of the extended
+// block; an element past the strips loads as zero (it lies more than h from
+// every owned element), and only owned elements are stored.  With the
+// shard's own ends as strips (one shard) the windows, and so the results,
+// are bit for bit those of the ring.  Each step uses up one halo unit per
+// side (the window's edge elements assemble with zeros), so the centre
+// stays exact while nsteps <= h; the host sets h = nsteps.  Each assembly
+// exchanges only the boundary points through shared memory.  With
+// `precomposed` the d-carry chain A.D.(A^2.D)^(n-1).A runs n+1
+// applications per launch instead of 2n.
 //
 // Two kernels on those windows:
-//  - dss_ring_x3_kernel, the ring's bf16x3 forms (K14 _x3 and _sq_x3, the
-//    ring and its window-fed mode): one warp per window element, 32
-//    columns per warp (two m-tiles), the applications on the tensor cores
-//    (bih::tc, biharmonic_common.cuh), the operator's hi/lo B fragments in
-//    registers (A, then A^2 for the middle of a precomposed chain, then A
-//    again, each loaded when it is needed), the field read in fragment order
-//    (8 consecutive columns x 4 points per read).  The blocks are
-//    persistent, one per SM (1024 threads at <= 64 registers), each warp
-//    copying its element's rows of the next (window, column tile) into its
-//    own stage with cp.async while it computes this one.  Shared memory
-//    holds those stages and the side buffers of the assembly,
-//    double-buffered so each step takes one barrier, not two.
-//  - dss_resident_kernel, the exact f32 and f64 ring and every torus form
-//    (K19): thread (x, y) holds the 16 GLL values of window element y,
-//    column x; the window's operators (split once per block into bf16 hi/lo
-//    planes for the torus's bf16x3) and inverse mass sit in shared memory
-//    and are read as warp-wide broadcasts (LDS.128), as in K1.
+//  - dss_ring_x3_kernel, the bf16x3 forms (K14 _x3 and _sq_x3, the ring and
+//    its window-fed mode): one warp per window element, 32 columns per warp
+//    (two m-tiles), the applications on the tensor cores (bih::tc,
+//    biharmonic_common.cuh), the operator's hi/lo B fragments in registers
+//    (A, then A^2 for the middle of a precomposed chain, then A again, each
+//    loaded when it is needed), the field read in fragment order (8
+//    consecutive columns x 4 points per read).  The blocks are persistent,
+//    one per SM (1024 threads at <= 64 registers), each warp copying its
+//    element's rows of the next (window, column tile) into its own stage
+//    with cp.async while it computes this one.  Shared memory holds those
+//    stages and the side buffers of the assembly, double-buffered so each
+//    step takes one barrier, not two.
+//  - dss_resident_kernel, the exact f32 and f64 forms: thread (x, y) holds
+//    the 16 GLL values of window element y, column x; the window's operators
+//    and inverse mass sit in shared memory and are read as warp-wide
+//    broadcasts (LDS.128), as in K1.
 //
 // Bound: device memory is touched once per launch (read the window, write
 // the centre), ~0.15 ms at production f32 whatever the depth; the
@@ -76,91 +69,51 @@ using bih::NPTS;
 constexpr int TILE = 32;        // columns per block (one warp)
 constexpr int MAX_WINDOW = 32;  // window elements at TILE columns
 
-// One assembly pass over window element y, column x: the points P0 +
-// k*STRIDE go to side0 and P3 + k*STRIDE to side3 (k < NP); then the P0
-// points gain element lo's side3 values and the P3 points element hi's side0
-// values (zeros where that neighbour is outside the window).
-template <typename T, int P0, int P3, int STRIDE>
-__device__ __forceinline__ void exchange(T v[NPTS], T* side0, T* side3, int x,
-                                         int y, int tc, int lo, bool has_lo,
-                                         int hi, bool has_hi) {
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    side0[(y * NP + k) * tc + x] = v[P0 + k * STRIDE];
-    side3[(y * NP + k) * tc + x] = v[P3 + k * STRIDE];
-  }
-  __syncthreads();
-  T from_lo[NP], from_hi[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    from_lo[k] = has_lo ? side3[(lo * NP + k) * tc + x] : T(0);
-    from_hi[k] = has_hi ? side0[(hi * NP + k) * tc + x] : T(0);
-  }
-  __syncthreads();  // every read done before the next pass writes
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    v[P0 + k * STRIDE] += from_lo[k];
-    v[P3 + k * STRIDE] += from_hi[k];
-  }
-}
-
-// The window: on the ring (ex = 1, ey = nelemd) rj = W consecutive elements
-// from b0 = blockIdx.x*center_j - halo_j; on the torus rows a0 + r (mod ex),
-// a0 = bi*center_i - halo_i, each of rj elements b0 + c (mod ey), b0 =
-// bj*center_j - halo_j, where blockIdx.x = bi*nbj + bj.  halo_j = 0 on the
-// torus means whole rows (rj = ey, b0 = 0).
-// strip > 0: the window-fed ring, ey owned elements between strips of
-// `strip` elements (the element index then counts in the extended block).
+// The window: W consecutive ring elements from b0 = blockIdx.x*center -
+// halo (mod n).  strip > 0: the window-fed ring, n owned elements between
+// strips of `strip` elements (the element index then counts in the extended
+// block).
 struct Window {
-  int ex, ey, halo_i, center_i, rj, halo_j, center_j, nbj, strip;
+  int n, halo, center, nwin, strip;
 };
 
-// L, L2 (nelemd,16,16); w (nelemd,16) inverse assembled mass in lane order;
-// q/out (nelemd,16,ncol).  Window-fed: L, L2, w (ey+2*strip, ...) of the
-// extended block, hl/hr (strip,16,ncol) and q/out (ey,16,ncol).  Block
-// (tc, W); the ring's tc is TILE.
-template <typename T, bool X3, bool SQ, bool TORUS>
+// The exact forms.  L, L2 (n,16,16); w (n,16) inverse assembled mass in
+// lane order; q/out (n,16,ncol).  Window-fed: L, L2, w (n+2*strip, ...) of
+// the extended block, hl/hr (strip,16,ncol) and q/out (n,16,ncol).  Block
+// (TILE, W).
+template <typename T, bool SQ>
 __global__ void __launch_bounds__(TILE * MAX_WINDOW)
 dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
                     const T* __restrict__ w, const T* __restrict__ hl,
                     const T* __restrict__ q, const T* __restrict__ hr,
                     T* __restrict__ out, int ncol, int nsteps, Window g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int PLANES = X3 ? 2 : 1;
-  const int tc = TORUS ? static_cast<int>(blockDim.x) : TILE;
+  const int tc = TILE;
   const int W = blockDim.y;
-  const int rj = TORUS ? g.rj : W;
+  const int rj = W;
   const int plane_len = W * NPTS * NPTS;
-  T* ops = reinterpret_cast<T*>(smem);              // [SQ?2:1][PLANES][W][256]
-  T* ws = ops + (SQ ? 2 : 1) * PLANES * plane_len;  // [W][16]
-  T* side0 = ws + W * NPTS;                         // [W][NP][tc] j = 0 / i = 0
-  T* side3 = side0 + W * NP * tc;                   // [W][NP][tc] j = np-1 / i = np-1
+  T* ops = reinterpret_cast<T*>(smem);     // [SQ?2:1][W][256]
+  T* ws = ops + (SQ ? 2 : 1) * plane_len;  // [W][16]
+  T* side0 = ws + W * NPTS;                // [W][NP][tc] j = 0
+  T* side3 = side0 + W * NP * tc;          // [W][NP][tc] j = np-1
 
-  const int bi = TORUS ? blockIdx.x / g.nbj : 0;
-  const int bj = TORUS ? blockIdx.x % g.nbj : blockIdx.x;
-  const int a0 = bi * g.center_i - g.halo_i;
-  const int b0 = bj * g.center_j - g.halo_j;
+  const int bj = blockIdx.x;
+  const int b0 = bj * g.center - g.halo;
   auto wrap = [](int i, int n) {
     i %= n;
     return i < 0 ? i + n : i;
   };
-  const bool fed = !TORUS && g.strip > 0;
-  const int n_ext = g.ey + 2 * g.strip;
-  auto elem = [&](int y) {
-    if constexpr (TORUS)
-      return wrap(a0 + y / rj, g.ex) * g.ey + wrap(b0 + y % rj, g.ey);
-    else
-      return fed ? b0 + y + g.strip : wrap(b0 + y, g.ey);
-  };
+  const bool fed = g.strip > 0;
+  const int n_ext = g.n + 2 * g.strip;
+  auto elem = [&](int y) { return fed ? b0 + y + g.strip : wrap(b0 + y, g.n); };
   auto inside = [&](int e) { return !fed || (e >= 0 && e < n_ext); };
   const int tid = threadIdx.y * tc + threadIdx.x;
   for (int i = tid; i < plane_len; i += W * tc) {
     const int ei = elem(i / (NPTS * NPTS));
     const size_t src = (size_t)ei * NPTS * NPTS + i % (NPTS * NPTS);
     const bool in = inside(ei);
-    bih::stage<T, X3>(ops, plane_len, i, in ? L[src] : T(0));
-    if constexpr (SQ)
-      bih::stage<T, X3>(ops + PLANES * plane_len, plane_len, i, in ? L2[src] : T(0));
+    bih::stage<T, false>(ops, plane_len, i, in ? L[src] : T(0));
+    if constexpr (SQ) bih::stage<T, false>(ops + plane_len, plane_len, i, in ? L2[src] : T(0));
   }
   for (int i = tid; i < W * NPTS; i += W * tc) {
     const int ei = elem(i / NPTS);
@@ -169,7 +122,7 @@ dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
   __syncthreads();
 
   const int x = threadIdx.x, y = threadIdx.y;
-  const int r = TORUS ? y / rj : 0, cj = TORUS ? y % rj : y;
+  const int cj = y;
   const int c = blockIdx.y * tc + x;
   const bool live = c < ncol;  // ragged last column tile: zeros, no store
   const int el = elem(y);
@@ -180,11 +133,11 @@ dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
   if (fed) {
     if (el < g.strip) {
       src = hl;
-    } else if (el < g.strip + g.ey) {
+    } else if (el < g.strip + g.n) {
       se = el - g.strip;
     } else {
       src = hr;
-      se = el - g.strip - g.ey;
+      se = el - g.strip - g.n;
     }
   }
   const bool load = live && inside(el);
@@ -195,50 +148,42 @@ dss_resident_kernel(const T* __restrict__ L, const T* __restrict__ L2,
     v[p] = load ? src[((size_t)se * NPTS + p) * ncol + c] : T(0);
 
   const T* A = ops + y * NPTS * NPTS;
-  const T* A2 = A + PLANES * plane_len;
+  const T* A2 = A + plane_len;
   const T* wy = ws + y * NPTS;
 
-  // j pass: the j=0 points gain the left neighbour's j=np-1 points, the
-  // j=np-1 points the right neighbour's j=0 points; whole torus rows wrap
-  const bool whole_rows = TORUS && g.halo_j == 0;
-  const bool has_l = cj > 0 || whole_rows, has_r = cj < rj - 1 || whole_rows;
+  // the j=0 points gain the left neighbour's j=np-1 points, the j=np-1
+  // points the right neighbour's j=0 points
+  const bool has_l = cj > 0, has_r = cj < rj - 1;
   const int yl = cj > 0 ? y - 1 : y + rj - 1;
   const int yr = cj < rj - 1 ? y + 1 : y - rj + 1;
-  // d = DSS(s) * w, as dss_ring_lane / dss2d_lane
+  // d = DSS(s) * w, as dss_ring_lane
   auto assemble = [&]() {
-    exchange<T, 0, NP - 1, NP>(v, side0, side3, x, y, tc, yl, has_l, yr, has_r);
-    // i pass of the j-summed field: the i=0 points gain the row above's
-    // i=np-1 points, the i=np-1 points the row below's i=0 points
-    if constexpr (TORUS)
-      exchange<T, 0, NPTS - NP, 1>(v, side0, side3, x, y, tc, y - rj, r > 0,
-                                   y + rj, r < W / rj - 1);
+    bih::exchange<T, 0, NP - 1, NP>(v, side0, side3, x, y, tc, yl, has_l, yr, has_r);
 #pragma unroll
     for (int p = 0; p < NPTS; ++p) v[p] *= wy[p];
   };
 
   if constexpr (SQ) {
     if (nsteps > 0) {
-      bih::apply<T, X3>(A, plane_len, v);
+      bih::apply<T, false>(A, plane_len, v);
       assemble();
       for (int s = 1; s < nsteps; ++s) {
-        bih::apply<T, X3>(A2, plane_len, v);
+        bih::apply<T, false>(A2, plane_len, v);
         assemble();
       }
-      bih::apply<T, X3>(A, plane_len, v);
+      bih::apply<T, false>(A, plane_len, v);
     }
   } else {
     for (int s = 0; s < nsteps; ++s) {
-      bih::apply<T, X3>(A, plane_len, v);
+      bih::apply<T, false>(A, plane_len, v);
       assemble();
-      bih::apply<T, X3>(A, plane_len, v);
+      bih::apply<T, false>(A, plane_len, v);
     }
   }
 
   // (window-fed, b0 + cj is the owned index)
-  const bool centre_j = cj >= g.halo_j && cj < g.halo_j + g.center_j && b0 + cj < g.ey;
-  const bool centre_i = !TORUS || (r >= g.halo_i && r < g.halo_i + g.center_i
-                                   && a0 + r < g.ex);
-  if (live && centre_i && centre_j) {
+  const bool centre_j = cj >= g.halo && cj < g.halo + g.center && b0 + cj < g.n;
+  if (live && centre_j) {
 #pragma unroll
     for (int p = 0; p < NPTS; ++p) out[(e * NPTS + p) * ncol + c] = v[p];
   }
@@ -265,7 +210,7 @@ __host__ __device__ constexpr int x3_smem_floats(int W) {
 // block b takes tiles b, b + gridDim.x, ... of (window bj, column tile ct),
 // ct fastest; each warp copies its element's rows of the next tile into its
 // own stage rows (cp.async) while it computes this one.  Arguments as
-// dss_resident_kernel's (g.rj = W).
+// dss_resident_kernel's.
 template <bool SQ>
 __global__ void __launch_bounds__(TILE * MAX_WINDOW, 1)
 dss_ring_x3_kernel(const float* __restrict__ L, const float* __restrict__ L2,
@@ -281,7 +226,7 @@ dss_ring_x3_kernel(const float* __restrict__ L, const float* __restrict__ L2,
   float* xch = smem_x3 + W * NPTS * STAGE_STRIDE;
   const int side_len = x3_side_len(W);
   const int ctiles = (ncol + TILE - 1) / TILE;
-  const int ntiles = g.nbj * ctiles;
+  const int ntiles = g.nwin * ctiles;
   const bool fed = g.strip > 0;
 
   // window element y of window bj: its index (extended, window-fed), whether
@@ -293,24 +238,24 @@ dss_ring_x3_kernel(const float* __restrict__ L, const float* __restrict__ L2,
   };
   auto elem = [&](int bj) {
     Elem e;
-    e.el = bj * g.center_j - g.halo_j + y;
+    e.el = bj * g.center - g.halo + y;
     if (fed) {
       e.el += g.strip;
     } else {
-      e.el %= g.ey;
-      if (e.el < 0) e.el += g.ey;
+      e.el %= g.n;
+      if (e.el < 0) e.el += g.n;
     }
-    e.inside = !fed || (e.el >= 0 && e.el < g.ey + 2 * g.strip);
+    e.inside = !fed || (e.el >= 0 && e.el < g.n + 2 * g.strip);
     e.src = q;
     e.se = e.el;
     if (fed) {
       if (e.el < g.strip) {
         e.src = hl;
-      } else if (e.el < g.strip + g.ey) {
+      } else if (e.el < g.strip + g.n) {
         e.se = e.el - g.strip;
       } else {
         e.src = hr;
-        e.se = e.el - g.strip - g.ey;
+        e.se = e.el - g.strip - g.n;
       }
     }
     return e;
@@ -399,8 +344,8 @@ dss_ring_x3_kernel(const float* __restrict__ L, const float* __restrict__ L2,
     }
 
     // (window-fed, b0 + y is the owned index)
-    const int b0 = bj * g.center_j - g.halo_j;
-    if (y >= g.halo_j && y < g.halo_j + g.center_j && b0 + y < g.ey) {
+    const int b0 = bj * g.center - g.halo;
+    if (y >= g.halo && y < g.halo + g.center && b0 + y < g.n) {
       const size_t eo = static_cast<size_t>(fed ? e.el - g.strip : e.el);
       const int c0 = (tile % ctiles) * TILE + gq;
 #pragma unroll
@@ -414,49 +359,22 @@ dss_ring_x3_kernel(const float* __restrict__ L, const float* __restrict__ L2,
   }
 }
 
-// Window sizes.  The ring: MAX_WINDOW elements at TILE columns.  The torus:
-// as many whole rows as fit in MAX_WINDOW elements at TILE columns, or in
-// 2*MAX_WINDOW at TILE/2; where 2*nsteps+1 whole rows do not fit, an 8 x 8
-// rectangle (2*MAX_WINDOW elements at TILE/2), so nsteps <= 3 there.
-// Window-fed (strip > 0, the ring only) nelemd counts the owned elements and
-// the windows are the ring's of that size.
-template <typename T, bool X3, bool SQ, bool TORUS>
+// Window sizes: MAX_WINDOW elements at TILE columns.  Window-fed (strip >
+// 0) n counts the owned elements and the windows are the ring's of that
+// size.
+template <typename T, bool X3, bool SQ>
 int launch(const void* L, const void* L2, const void* w, const void* hl,
            const void* q, const void* hr, void* out, int nelemd, int strip,
-           int ncol, int nsteps, int ey, void* stream) {
+           int ncol, int nsteps, void* stream) {
   const int h = nsteps;
-  if (nsteps < 0 || nelemd < 1 || ncol < 1 || (TORUS && (ey < 1 || nelemd % ey))
-      || strip < 0 || (strip > 0 && (TORUS || h > strip || !hl || !hr)))
+  if (nsteps < 0 || nelemd < 1 || ncol < 1 || strip < 0
+      || (strip > 0 && (h > strip || !hl || !hr)) || 2 * h + 1 > MAX_WINDOW)
     return static_cast<int>(cudaErrorInvalidValue);
-  int tc = TILE;
-  Window g{};
-  if (!TORUS) {
-    if (2 * h + 1 > MAX_WINDOW) return static_cast<int>(cudaErrorInvalidValue);
-    const int center = MAX_WINDOW - 2 * h < nelemd ? MAX_WINDOW - 2 * h : nelemd;
-    g = Window{1, nelemd, 0, 1, center + 2 * h, h, center,
-               (nelemd + center - 1) / center, strip};
-  } else {
-    const int ex = nelemd / ey;
-    int rows = MAX_WINDOW / ey;
-    if (rows < 2 * h + 1) {
-      tc = TILE / 2;
-      rows = 2 * MAX_WINDOW / ey;
-    }
-    if (rows >= 2 * h + 1) {
-      const int ci = rows - 2 * h < ex ? rows - 2 * h : ex;
-      g = Window{ex, ey, h, ci, ey, 0, ey, 1, 0};
-    } else {
-      constexpr int SIDE = 8;  // SIDE * SIDE == 2 * MAX_WINDOW
-      if (2 * h + 1 > SIDE) return static_cast<int>(cudaErrorInvalidValue);
-      const int ci = SIDE - 2 * h < ex ? SIDE - 2 * h : ex;
-      const int cj = SIDE - 2 * h < ey ? SIDE - 2 * h : ey;
-      g = Window{ex, ey, h, ci, cj + 2 * h, h, cj, (ey + cj - 1) / cj, 0};
-    }
-  }
-  const int nbi = TORUS ? (g.ex + g.center_i - 1) / g.center_i : 1;
-  const int W = (TORUS ? g.center_i + 2 * h : 1) * g.rj;
-  const dim3 grid(nbi * g.nbj, (ncol + tc - 1) / tc);
-  if constexpr (X3 && !TORUS) {
+  const int center = MAX_WINDOW - 2 * h < nelemd ? MAX_WINDOW - 2 * h : nelemd;
+  const Window g{nelemd, h, center, (nelemd + center - 1) / center, strip};
+  const int W = center + 2 * h;
+  const dim3 grid(g.nwin, (ncol + TILE - 1) / TILE);
+  if constexpr (X3) {
     const size_t smem = sizeof(float) * x3_smem_floats(W);
     auto kern = dss_ring_x3_kernel<SQ>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -479,13 +397,13 @@ int launch(const void* L, const void* L2, const void* w, const void* hl,
         static_cast<float*>(out), ncol, nsteps, g);
     return static_cast<int>(cudaGetLastError());
   } else {
-    const size_t smem = sizeof(T) * ((SQ ? 2 : 1) * (X3 ? 2 : 1) * W * NPTS * NPTS
-                                     + W * NPTS + 2 * W * NP * tc);
-    auto kern = dss_resident_kernel<T, X3, SQ, TORUS>;
+    const size_t smem = sizeof(T) * ((SQ ? 2 : 1) * W * NPTS * NPTS + W * NPTS
+                                     + 2 * W * NP * TILE);
+    auto kern = dss_resident_kernel<T, SQ>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, dim3(tc, W), smem, static_cast<cudaStream_t>(stream)>>>(
+    kern<<<grid, dim3(TILE, W), smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(L), static_cast<const T*>(L2),
         static_cast<const T*>(w), static_cast<const T*>(hl),
         static_cast<const T*>(q), static_cast<const T*>(hr), static_cast<T*>(out),
@@ -497,15 +415,11 @@ int launch(const void* L, const void* L2, const void* w, const void* hl,
 template <typename T, bool X3>
 int dispatch(const void* L, const void* L2, const void* w, const void* hl,
              const void* q, const void* hr, void* out, int nelemd, int strip,
-             int ncol, int nsteps, int ey, int sq, void* stream) {
-  if (ey > 0)
-    return sq ? static_cast<int>(cudaErrorInvalidValue)
-              : launch<T, X3, false, true>(L, L2, w, hl, q, hr, out, nelemd, strip,
-                                           ncol, nsteps, ey, stream);
-  return sq ? launch<T, X3, true, false>(L, L2, w, hl, q, hr, out, nelemd, strip,
-                                         ncol, nsteps, 0, stream)
-            : launch<T, X3, false, false>(L, L2, w, hl, q, hr, out, nelemd, strip,
-                                          ncol, nsteps, 0, stream);
+             int ncol, int nsteps, int sq, void* stream) {
+  return sq ? launch<T, X3, true>(L, L2, w, hl, q, hr, out, nelemd, strip, ncol, nsteps,
+                                  stream)
+            : launch<T, X3, false>(L, L2, w, hl, q, hr, out, nelemd, strip, ncol, nsteps,
+                                   stream);
 }
 
 }  // namespace
@@ -513,25 +427,23 @@ int dispatch(const void* L, const void* L2, const void* w, const void* hl,
 extern "C" {
 
 // L, L2 (nelemd,16,16) (L2 = L@L, read only with sq), w (nelemd,16),
-// q/out (nelemd,16,ncol), contiguous on one device.  ey = 0 assembles over
-// the ring (nsteps <= 15), ey > 0 over the (nelemd/ey, ey) torus (no sq;
-// nsteps <= 3, or more where 2*nsteps+1 rows of ey elements fit in 64).
-// x3 selects bf16x3 products, sq the precomposed d-carry chain.  Returns
+// q/out (nelemd,16,ncol), contiguous on one device; nsteps <= 15.  x3
+// selects bf16x3 products, sq the precomposed d-carry chain.  Returns
 // cudaGetLastError() after the launch.
 int cdk_dss_resident_f32(const void* L, const void* L2, const void* w,
                          const void* q, void* out, int nelemd, int ncol,
-                         int nsteps, int ey, int x3, int sq, void* stream) {
+                         int nsteps, int x3, int sq, void* stream) {
   return x3 ? dispatch<float, true>(L, L2, w, nullptr, q, nullptr, out, nelemd, 0,
-                                    ncol, nsteps, ey, sq, stream)
+                                    ncol, nsteps, sq, stream)
             : dispatch<float, false>(L, L2, w, nullptr, q, nullptr, out, nelemd, 0,
-                                     ncol, nsteps, ey, sq, stream);
+                                     ncol, nsteps, sq, stream);
 }
 
 int cdk_dss_resident_f64(const void* L, const void* L2, const void* w,
                          const void* q, void* out, int nelemd, int ncol,
-                         int nsteps, int ey, int sq, void* stream) {
+                         int nsteps, int sq, void* stream) {
   return dispatch<double, false>(L, L2, w, nullptr, q, nullptr, out, nelemd, 0,
-                                 ncol, nsteps, ey, sq, stream);
+                                 ncol, nsteps, sq, stream);
 }
 
 // The window-fed ring (a shard of a decomposed ring): q/out (e_own,16,ncol)
@@ -545,9 +457,9 @@ int cdk_dss_resident_window_f32(const void* L, const void* L2, const void* w,
                                 int nsteps, int x3, int sq, void* stream) {
   if (strip < 1) return static_cast<int>(cudaErrorInvalidValue);
   return x3 ? dispatch<float, true>(L, L2, w, hl, q, hr, out, e_own, strip, ncol,
-                                    nsteps, 0, sq, stream)
+                                    nsteps, sq, stream)
             : dispatch<float, false>(L, L2, w, hl, q, hr, out, e_own, strip, ncol,
-                                     nsteps, 0, sq, stream);
+                                     nsteps, sq, stream);
 }
 
 int cdk_dss_resident_window_f64(const void* L, const void* L2, const void* w,
@@ -556,7 +468,7 @@ int cdk_dss_resident_window_f64(const void* L, const void* L2, const void* w,
                                 int nsteps, int sq, void* stream) {
   if (strip < 1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<double, false>(L, L2, w, hl, q, hr, out, e_own, strip, ncol,
-                                 nsteps, 0, sq, stream);
+                                 nsteps, sq, stream);
 }
 
 }  // extern "C"

@@ -8,27 +8,39 @@ variant names of `biharmonic_dss2d`:
   fused_operator_bd8_resident      "highest": exact f32 or f64 products
   fused_operator_bd8_resident_x3   "bf16x3" products (f32 only)
 
-The CUDA kernel is K14's (csrc/biharmonic_dss_resident.cu) with its torus
-switch.  Its window is 2k+1 or more whole element rows where they fit in
-WINDOW elements, as in the TPU kernel, so the j assembly stays inside the
-window and only the i assembly consumes halo rows; where they do not (long
-rows: the production 75 x 72 torus), an 8 x 8 rectangle of elements with
-halo in both directions, which takes at most RECT_STEPS steps.  So the
-port runs every torus, where the JAX variants raise UnsupportedConfigError
-once their full-row window exceeds VMEM (at production, for one).  Beside
-the wrapper here: `dss2d_resident_plain`, the same function in plain
-PyTorch over the whole field (the CPU path, and what the kernel is compared
-with on the card).  The TPU's grouping, window geometry, VMEM budget and
-128-lane pad are not ported.
+The CUDA kernels are csrc/biharmonic_dss2d_resident.cu.  A launch of k
+steps computes windows of element rows with k halo units per side and
+stores their centres: 2k+1 or more whole rows where they fit in WINDOW
+elements, as in the TPU kernel, so the j assembly stays inside the window
+and only the i assembly consumes halo rows; where they do not (long rows:
+the production 75 x 72 torus), a rectangle of elements with halo in both
+directions, which takes at most RECT_STEPS steps.  So the port runs every
+torus, where the JAX variants raise UnsupportedConfigError once their
+full-row window exceeds VMEM (at production, for one).  The bf16x3 form
+runs on the tensor cores (mma.sync), two window elements a warp at 16
+columns in windows of up to 64 (whole rows where 2k+1 fit, else 8 x 8; the
+shapes chip_smoke.py's sweep and scripts/torch_dss2d_window_variants.py
+measured on the H100, PERF.md §6), in persistent blocks that sweep each
+window's column tiles; the tensor core sums a product's terms in its own
+order, so it matches the plain version within the registered 5e-5, not bit
+for bit.  The exact forms keep one thread per column and are bit for bit
+the plain version.  Beside the wrapper here: `dss2d_resident_plain`, the
+same function in plain PyTorch over the whole field (the CPU path, and what
+the kernel is compared with on the card).  The TPU's grouping, window
+geometry, VMEM budget and 128-lane pad are not ported.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from cdk_torch.core import build
 from cdk_torch.core.registry import register
 from cdk_torch.kernels.biharmonic.dss2d import dss2d_lane, dss2d_weights, torus_shape
-from cdk_torch.kernels.biharmonic.dss_resident import NPG, NPTS, launch, validate
+from cdk_torch.kernels.biharmonic.dss_resident import NPG, NPTS, validate
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
@@ -40,7 +52,7 @@ from cdk_torch.kernels.biharmonic.problem import (
 )
 from cdk_torch.kernels.biharmonic.reference import rrearth_as
 
-WINDOW = 64  # the kernel's largest window, in elements (at 16 columns)
+WINDOW = 64  # the kernels' largest window, in elements (at 16 columns)
 RECT_STEPS = 3  # steps an 8 x 8 window takes (2k+1 < 8)
 # steps per launch in `loop` where whole rows fit (capped by their
 # capacity): the fastest of 1-4 at the shipped 4 x 4 torus on the H100, f32
@@ -92,8 +104,39 @@ def dss2d_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
                          f"got {q_lane.shape[0]}")
     if q_lane.device.type == "cpu":
         return dss2d_resident_plain(L, w, q_lane, ex, ey, nsteps, precision)
-    out = launch(L, w, q_lane, nsteps, precision, None, ey, "dss2d_resident")
+    out = launch(L, w, q_lane, ex, ey, nsteps, precision)
     dss2d_resident.launches += 1
+    return out
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library()
+    ptrs = [ctypes.c_void_p] * 4
+    lib.cdk_dss2d_resident_f32.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.cdk_dss2d_resident_f64.argtypes = ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.cdk_dss2d_resident_f32.restype = ctypes.c_int
+    lib.cdk_dss2d_resident_f64.restype = ctypes.c_int
+    return lib
+
+
+def launch(L, w, q_lane, ex, ey, nsteps, precision):
+    """One launch of csrc/biharmonic_dss2d_resident.cu on CUDA tensors
+    that dss2d_resident has validated.  Counts no launch."""
+    if not all(t.is_contiguous() for t in (L, w, q_lane)):
+        raise ValueError("dss2d_resident needs contiguous operands")
+    out = torch.empty_like(q_lane)
+    ncol = q_lane.shape[2]
+    with torch.cuda.device(q_lane.device):
+        stream = torch.cuda.current_stream(q_lane.device).cuda_stream
+        args = (L.data_ptr(), w.data_ptr(), q_lane.data_ptr(), out.data_ptr(), ex,
+                ey, ncol, nsteps)
+        if q_lane.dtype == torch.float32:
+            err = _lib().cdk_dss2d_resident_f32(
+                *args, int(precision == "bf16x3"), stream)
+        else:
+            err = _lib().cdk_dss2d_resident_f64(*args, stream)
+    build.check(err, "dss2d_resident")
     return out
 
 

@@ -13,12 +13,15 @@ same variant names (`fused_operator_rowchain`, `_x3`, `_sq`, `_sq_x3`).
 The x3 forms split the operator they apply into bf16 hi/lo parts: A in the
 bridges, A² (or A) in the step.
 
-The CUDA kernels are csrc/biharmonic_dss2d_rowchain.cu.  The step computes
-each element's F once per tile and exchanges the j boundary points; its
-bf16x3 forms run on the tensor cores (mma.sync), which sum a product's
-terms in their own order, so they match the plain version within the
-registered 5e-5, not bit for bit, and still equal each other (depth k and
-k depth-1 launches, the padded mode) bit for bit.  Beside them here:
+The CUDA kernel is csrc/biharmonic_dss2d_rowchain.cu's step_kernel, a warp
+per element of a row tile, in three modes: the step computes each
+element's F once per tile and exchanges the j boundary points; bridge-in
+applies A once and exchanges them the same way; bridge-out applies A once
+to ipass(t)·w and exchanges nothing.  Their bf16x3 forms run on the tensor
+cores (mma.sync), which sum a product's terms in their own order, so they
+match the plain version within the registered 5e-5, not bit for bit, and
+still equal each other (depth k and k depth-1 launches, the padded mode)
+bit for bit.  Beside them here:
 the plain PyTorch version of each (the CPU path, and what the kernels are
 compared with on the card) and the three wrappers, each with a launch
 counter; `rowchain_step.depth_launches` also counts the step's launches by
@@ -210,6 +213,9 @@ def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what, pad=0,
     side; `out` (allocated where None) then has ex rows or x's shape."""
     if not all(t is None or t.is_contiguous() for t in (op, w, x, out, tmp)):
         raise ValueError(f"{what} needs contiguous operands")
+    if any(t is not None and t.data_ptr() % 16 for t in (op, w)):
+        raise ValueError(f"{what} copies the operator and w in 16-byte pieces: "
+                         "they must start 16-byte aligned")
     ncol = x.shape[2]
     if out is None:
         out = torch.empty((ex * ey, NPTS, ncol), dtype=x.dtype, device=x.device)

@@ -15,12 +15,13 @@ The CUDA kernel is csrc/biharmonic_dss_resident.cu: a window of elements
 with h = k halo elements per side, so one launch takes at most MAX_STEPS
 steps.  The bf16x3 forms run on the tensor cores (mma.sync), which sum a
 product's terms in their own order, so they match the plain version within
-the registered 5e-5, not bit for bit; the exact forms are bit for bit.  Its torus switch is K19 (`dss2d_resident.py`), which shares
-`validate` and `launch` from here.  Beside it here: `dss_resident_plain`,
-the same function in plain PyTorch over the whole field (the CPU path, and
-what the kernel is compared with on the card), and the wrapper
-`dss_resident`.  `loop(data,
-n)` chains launches of DEPTH steps and one launch for the remainder.  The
+the registered 5e-5, not bit for bit; the exact forms are bit for bit.
+K19, the same chain over the torus (`dss2d_resident.py`), has a kernel of
+its own and shares `validate` from here.  Beside it here:
+`dss_resident_plain`, the same function in plain PyTorch over the whole
+field (the CPU path, and what the kernel is compared with on the card), and
+the wrapper `dss_resident`.  `loop(data, n)` chains launches of DEPTH steps
+and one launch for the remainder.  The
 TPU's grouping, window geometry and VMEM budgets (`_pick_geometry`,
 `_pick_k`, `KMAX`, the `CDK_DSS*` hooks, the 128-lane pad) are not ported.
 
@@ -130,8 +131,8 @@ def dss_resident_window_plain(L_ext: torch.Tensor, w_ext: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = build.library()
     ptrs = [ctypes.c_void_p] * 5
-    lib.cdk_dss_resident_f32.argtypes = ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.cdk_dss_resident_f64.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.cdk_dss_resident_f32.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.cdk_dss_resident_f64.argtypes = ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     wptrs = [ctypes.c_void_p] * 7
     lib.cdk_dss_resident_window_f32.argtypes = (wptrs + [ctypes.c_int] * 6
                                                 + [ctypes.c_void_p])
@@ -168,9 +169,9 @@ def validate(L, w, q_lane, nsteps, precision, L2, max_steps=MAX_STEPS,
                          f"{tuple(w.shape)}, {tuple(q_lane.shape)}")
 
 
-def launch(L, w, q_lane, nsteps, precision, L2, ey, what):
-    """One launch of csrc/biharmonic_dss_resident.cu: the ring (ey = 0) or
-    the torus with rows of ey elements; arguments already validated."""
+def launch(L, w, q_lane, nsteps, precision, L2, what):
+    """One launch of csrc/biharmonic_dss_resident.cu on the ring; arguments
+    already validated."""
     sq = L2 is not None
     l2 = L2 if sq else L
     if not all(t.is_contiguous() for t in (L, l2, w, q_lane)):
@@ -180,7 +181,7 @@ def launch(L, w, q_lane, nsteps, precision, L2, ey, what):
     with torch.cuda.device(q_lane.device):
         stream = torch.cuda.current_stream(q_lane.device).cuda_stream
         args = (L.data_ptr(), l2.data_ptr(), w.data_ptr(), q_lane.data_ptr(),
-                out.data_ptr(), e, ncol, nsteps, ey)
+                out.data_ptr(), e, ncol, nsteps)
         if q_lane.dtype == torch.float32:
             err = _lib().cdk_dss_resident_f32(
                 *args, int(precision == "bf16x3"), int(sq), stream)
@@ -198,7 +199,7 @@ def dss_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
     validate(L, w, q_lane, nsteps, precision, L2)
     if q_lane.device.type == "cpu":
         return dss_resident_plain(L, w, q_lane, nsteps, precision, L2)
-    out = launch(L, w, q_lane, nsteps, precision, L2, 0, "dss_resident")
+    out = launch(L, w, q_lane, nsteps, precision, L2, "dss_resident")
     dss_resident.launches += 1
     dss_resident.steps += nsteps
     return out

@@ -10,10 +10,10 @@ Phases, each printing its result; the first failure exits non-zero:
               name and power limit (nvidia-smi)
   2. build    compile cdk_torch/csrc/*.cu with nvcc (sm_90a); print ptxas's
               registers and spills of the kernels redesigned for Hopper:
-              K14's bf16x3 ring kernel, the rowchain step kernel, the
-              MPDATA sweep (every instantiation: staged K6-K8, hoisted
-              K2/K9, masked K20-K25), K12, and K3 and K13 (with K13's
-              transpose)
+              K14's bf16x3 ring kernel, the rowchain kernel in its three
+              modes (K15-K18), K19's two kernels, the MPDATA sweep (every
+              instantiation: staged K6-K8, hoisted K2/K9, masked K20-K25),
+              K12, and K3 and K13 (with K13's transpose)
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes (shipped and production),
               f32 and f64, with the family's gate; both timed with CUDA
@@ -48,8 +48,11 @@ Phases, each printing its result; the first failure exits non-zero:
               and the rowchain step run on the tensor cores, which sum a
               product's terms in their own order: held to the 5e-5 gate,
               not bit for bit); a depth sweep at production f32, us per
-              step: K14 at 2-8 steps per launch (sq_x3, sq) and the
-              rowchain step's four forms at depths 1, 2, 3, 4, 8; the
+              step: K14 at 2-8 steps per launch (sq_x3, sq), the
+              rowchain step's four forms at depths 1, 2, 3, 4, 8, and
+              K19's bf16x3 form at 1-3 steps a launch (production, the 8 x 8
+              window; 1-4 at the shipped 4 x 4, whole rows, with its exact
+              forms' depths); the
               masked-global MPDATA kernel K20-K25 on shard windows of the
               shipped config (f32 and f64, 1 and 4 shards) and the
               production 8192 x 32 x 58 (f32, 1 shard; K24/K25 at kstep 2
@@ -70,8 +73,9 @@ Phases, each printing its result; the first failure exits non-zero:
               8) on 1 and 2 (shipped) or 4 (production) ring shards, split
               and padded operands bitwise equal and on 1 shard bitwise
               equal to K14; the padded rowchain K16p, K17p and K18p (at the
-              loop's depth, bitwise equal to that many K16p launches) on 1
-              and 2 (shipped) or 3 (production 75 x 72) row shards
+              loop's depth, bitwise equal to that many K16p launches; K17p
+              on 1 shard bitwise equal to K17) on 1 and 2 (shipped) or 3
+              (production 75 x 72) row shards
   5. dist     the decomposed MPDATA and DSS paths on a mesh of shards on the
               card: cdk_torch.harness.distbench.run_dist_legs (both mpdata
               legs and both DSS legs at the production preset on 1 shard,
@@ -99,12 +103,17 @@ last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
 --times OUT runs phases 1 and 2 and then times K3 and K13 (at production
 f32 and the shipped size in f64), K12 (at the shipped size,
 f32, f64 and bf16), the MPDATA step kernel (at production, f32, f64 and
-bf16: K6 and K7 one step, K8 four; K2 one and four steps, K9 four) and the
+bf16: K6 and K7 one step, K8 four; K2 one and four steps, K9 four), the
 masked kernel (K22/K23 one step, K24/K25 four, on the one-shard window at
-the shipped 48 slices and at production), and saves their outputs to OUT;
---against REF then holds them bitwise equal to those a run of another tree
-saved in REF, K2's and K9's within the family gates.
-Run against an older tree's package, it measures that tree:
+the shipped 48 slices and at production) and the DSS kernels (K14-K19 and
+their dist modes at production, K19 also shipped; and the production
+biharmonic_dss2d legs of phases 4 and 5 that run the rowchain kernels, in
+us/step; --kernels narrows to cke, mpdata or dss), and saves their outputs
+(of the DSS kernels, digests) to OUT; --against REF then holds them bitwise
+equal to those a run of another tree saved in REF, K2's and K9's within the
+family gates (the bf16x3 forms of K15, K17, K17p and K19, redesigned on
+the tensor cores, are not held), and prints REF's times beside.  Run against an older tree's
+package, it measures that tree:
 
     PYTHONSAFEPATH=1 PYTHONPATH=OLD python3 chip_smoke.py --times OUT
 """
@@ -149,7 +158,8 @@ REDESIGNED = {"K14": (7, 1.6638), "K14w": (7, 3.8402), "K16": (7, 0.5580),
               "K12": (8, 2.0123), "K2": (9, 0.7962), "K9": (9, 0.7968),
               "K20": (9, 0.7565), "K21": (9, 0.7535), "K22": (9, 0.7534),
               "K23": (9, 0.8306), "K24": (9, 3.2612), "K25": (9, 3.3596),
-              "K3": (10, 0.3515), "K13": (10, 0.8552)}
+              "K3": (10, 0.3515), "K13": (10, 0.8552), "K15": (11, 0.4306),
+              "K17": (11, 0.4311), "K17p": (11, 0.4250), "K19": (11, 1.6471)}
 
 
 # the kernels whose launches run several steps; their rows also count the
@@ -312,33 +322,36 @@ def phase_build():
     print(f"[2 build] {built.path.name}: nvcc {built.seconds:.1f} s")
     print(built.log.strip(), file=sys.stderr)
     # ptxas's registers and spills of the kernels redesigned for Hopper:
-    # K14's bf16x3 ring and the rowchain step (tensor cores), the MPDATA
-    # sweep (L levels a lane; its staged, hoisted and masked modes), K12, and
-    # K3 and K13 (vec: 16-byte level groups; K13's first kernel the
-    # transpose), with their static shared memory (K3's and K13's tiles are
-    # dynamic, sized by their launchers)
+    # K14's bf16x3 ring, the rowchain kernel in its three modes (0 bridge_in,
+    # 1 step, 2 bridge_out; tensor cores for x3) and K19's two kernels (x3 on
+    # the tensor cores; exact), the MPDATA sweep (L
+    # levels a lane; its staged, hoisted and masked modes), K12, and K3 and
+    # K13 (vec: 16-byte level groups; K13's first kernel the transpose), with
+    # their static shared memory (the others' is dynamic, sized by their
+    # launchers)
     flag_names = {"step_kernel": ("x3", "sq"), "dss_ring_x3_kernel": ("sq",),
                   "cke_onehot_kernel": ("bf16",), "cke_rows_kernel": ("vec",),
                   "cke_lanegather_kernel": ("vec",),
                   "mpdata_sweep_kernel": ("split", "hoist", "masked")}
+    int_names = {"mpdata_sweep_kernel": ("L",), "step_kernel": ("elems", "mode")}
     for m in re.finditer(r"Function properties for (\S+)\n\s+(\d+) bytes stack frame, "
                          r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
                          r"(\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?",
                          built.log):
         k = re.search(r"(dss_ring_x3_kernel|step_kernel|mpdata_sweep_kernel|"
                       r"cke_onehot_kernel|cke_rows_kernel|cke_lanegather_kernel|"
-                      r"transpose_kernel)I(\w*?)EEv", m.group(1))
+                      r"transpose_kernel|dss2d_x3_kernel|dss2d_exact_kernel)(?:I(\w*?)EEv)?",
+                      m.group(1))
         if k:
-            args = k.group(2)
+            args = k.group(2) or ""
             dtype = ("bf16 " if args.startswith("13__nv_bfloat16")
                      else {"f": "f32 ", "d": "f64 "}.get(args[:1], "f32 "))
             flags = dict(zip(flag_names.get(k.group(1), ()),
                              re.findall(r"Lb(\d)E", args + "E")))
-            ints = re.findall(r"Li(\d+)E", args + "E")
-            name = "L" if k.group(1) == "mpdata_sweep_kernel" else "elems"
+            ints = dict(zip(int_names.get(k.group(1), ("elems",)),
+                            re.findall(r"Li(\d+)E", args + "E")))
             print(f"[2 ptxas] {k.group(1)} {dtype}"
-                  + " ".join(f"{f}={v}" for f, v in flags.items())
-                  + (f" {name}={ints[0]}" if ints else "")
+                  + " ".join(f"{f}={v}" for f, v in {**flags, **ints}.items())
                   + f": {m.group(5)} registers, spill stores {m.group(3)} B, spill "
                   f"loads {m.group(4)} B, stack {m.group(2)} B, static smem "
                   f"{m.group(6) or 0} B")
@@ -1108,7 +1121,64 @@ def phase_depth_sweep(dev, card):
               f"1 / 2 / 3 / 4 / 8: {us} [{card}]")
     torch.cuda.synchronize()
     del data, q, L, w, L2, F, t
+    k19_window_sweep(dev, card)
     print(f"[3 sweep] {time.perf_counter() - t0:.1f} s")
+
+
+def k19_window_sweep(dev, card):
+    """K19's bf16x3 form, us per step at 1, 2 and 3 steps a launch in the
+    window its launcher picks, each output held to the plain version at the
+    bf16x3 gate: at production (75 x 72, no whole row fits: the 8 x 8) and
+    at the shipped 4 x 4 torus (whole rows, also 4 steps), rrearth 0.1 as
+    the loops run.  dss2d_resident.RECT_DEPTH / DEPTH are set from these;
+    the window shapes that were not kept are measured by
+    scripts/torch_dss2d_window_variants.py."""
+    import torch
+
+    import cdk_torch.kernels  # noqa: F401  (registers the variants)
+    from cdk_torch.core import registry
+    from cdk_torch.core.config import BiharmonicConfig, with_overrides
+    from cdk_torch.kernels.biharmonic import dss2d_resident as dr2
+    from cdk_torch.kernels.biharmonic import problem as bp
+    from cdk_torch.kernels.biharmonic.dss2d import torus_shape
+
+    for label, nelemd, qsize in (("production", 5400, 10), ("shipped", 16, 40)):
+        cfg = with_overrides(BiharmonicConfig(nelemd=nelemd, qsize=qsize, dtype="float32",
+                                              device_init=True), rrearth=0.1)
+        data = bp.init_data(cfg, dev)
+        q = bp.to_lane_layout(data.qtens)
+        ex, ey = torus_shape(nelemd)
+        L, w = registry.get("biharmonic_dss2d", "fused_operator_bd8_resident_x3").fn(
+            cfg)["prepare"](data)
+        cells = []
+        for k in (1, 2, 3, 4) if label == "shipped" else (1, 2, 3):
+            ref = dr2.dss2d_resident_plain(L, w, q, ex, ey, k, "bf16x3")
+            out = dr2.launch(L, w, q, ex, ey, k, "bf16x3")
+            torch.cuda.synchronize()
+            rel, _, big = errors(out, ref, "l2")
+            if not (rel < 5e-5 and big > 0):
+                fail(f"K19 {label} k={k}: rel_l2 {rel:.3e}")
+            us = timed_ms(lambda: dr2.launch(L, w, q, ex, ey, k, "bf16x3"), REPS) / k * 1e3
+            cells.append(f"k={k} {us:.1f} (rel_l2 {rel:.1e})")
+            del ref, out
+        print(f"[3 sweep] K19 x3 {label} {ex}x{ey} ncol={cfg.ncol} "
+              f"({'whole rows' if dr2.row_steps(ey) else '8 x 8'} window), us per "
+              f"step: {'; '.join(cells)} [{card}]")
+        del data, q, L, w
+    # the exact forms' launch depth at the shipped torus (their windows are
+    # fixed: whole rows of 4)
+    for dtype in ("float32", "float64"):
+        cfg = with_overrides(BiharmonicConfig(nelemd=16, qsize=40, dtype=dtype,
+                                              device_init=True), rrearth=0.1)
+        data = bp.init_data(cfg, dev)
+        q = bp.to_lane_layout(data.qtens)
+        L, w = registry.get("biharmonic_dss2d", "fused_operator_bd8_resident").fn(
+            cfg)["prepare"](data)
+        us = " / ".join(
+            f"{timed_ms(lambda: dr2.dss2d_resident(L, w, q, 4, 4, k), REPS) / k * 1e3:.1f}"
+            for k in (1, 2, 3, 4))
+        print(f"[3 sweep] K19 exact shipped 4x4 {dtype}, us per step at 1 / 2 / 3 / 4 "
+              f"steps a launch: {us} [{card}]")
 
 
 def ring_cone_ops(e: int, ncol: int, k: int, prec: str) -> dict:
@@ -1237,6 +1307,13 @@ def phase_dist_dss_kernels(dev, card):
                                                               ey, prec),
                         lambda: rc.rowchain_bridge_out_padded_plain(L_s[p], w_s[p], tp1,
                                                                     exl, ey, prec))
+                    if P == 1:  # the torus's own wrapped rows as the pad
+                        same = torch.equal(q_out, rc.rowchain_bridge_out(
+                            L_s[0], w_s[0], t_s[0], exl, ey, prec))
+                        torch.cuda.synchronize()
+                        if not same:
+                            fail(f"K17p {shape}: differs from K17 on its own rows")
+                        print(f"[3 K17p] {shape}: bitwise equal to K17")
                     tpk = dbi.ring_rows(t_s, ey, kk)[p]
                     Fk = dbi.ring_rows(F_s, ey, kk - 1)[p]
                     wk = dbi.ring_rows(w_s, ey, kk - 1)[p]
@@ -1560,9 +1637,150 @@ def phase_dist(dev, card, ledger: SizeLedger):
     ledger.charge("production")
 
 
-def phase_times(dev, card, out: str, against: str | None) -> None:
-    """--times: K3, K13, K12, the MPDATA step kernel and the masked kernel,
-    timed in the tree whose cdk_torch this imports (K3 and K13 at production
+# the DSS kernels --times runs; the bf16x3 forms of those this change
+# redesigned are not held bitwise to an older tree's
+DSS_TIMED = ("K14", "K14w", "K15", "K16", "K16p", "K17", "K17p", "K18", "K18p", "K19")
+DSS_REDESIGNED = ("K15", "K17", "K17p", "K19")
+
+
+def digest(x):
+    """The sha256 of a tensor's bytes, as a uint8 tensor: what --times saves
+    of a DSS kernel's output (249 MB each at production)."""
+    import hashlib
+
+    import torch
+
+    return torch.tensor(list(hashlib.sha256(x.contiguous().cpu().numpy().tobytes())
+                             .digest()), dtype=torch.uint8)
+
+
+def dss_times(dev, times, outs):
+    """--times for the DSS kernels at production (5400 x 72 x 10, the torus
+    75 x 72, rrearth 0.1 as the loops run), each wrapper timed and its
+    output's digest saved: K14 in its four forms at dss_resident.DEPTH
+    steps, K14w at kstep 8 on one ring shard (sq and sq_x3), the rowchain's
+    K15, K16 (depth 1), K18 (depth 4) and K17 and the padded K16p, K18p
+    (depth 4) and K17p on one row shard, in both precisions (the step and
+    its padded modes with the precomposed A^2; their input t from the plain
+    bridge-in), and K19 in f32 bf16x3, f32 exact and f64 at one step a
+    launch, and at the shipped 4 x 4 torus (16 x 72 x 40) at two; then the
+    legs that run the rowchain kernels (dss2d_leg_times).  Only wrappers an
+    older tree has too are called, so the same script times either tree."""
+    import torch
+
+    import cdk_torch.kernels  # noqa: F401  (registers the variants)
+    from cdk_torch.core import registry
+    from cdk_torch.core.config import BiharmonicConfig
+    from cdk_torch.dist import biharmonic as dbi
+    from cdk_torch.dist import mesh as dmesh
+    from cdk_torch.kernels.biharmonic import dss2d_resident as dr2
+    from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
+    from cdk_torch.kernels.biharmonic import dss_resident as dr
+    from cdk_torch.kernels.biharmonic import problem as bp
+    from cdk_torch.kernels.biharmonic.dss2d import torus_shape
+    from cdk_torch.kernels.biharmonic.operator import precompose_operator
+
+    def run(key, fn):
+        outs[key] = digest(fn())
+        times[key] = timed_ms(fn, REPS)
+
+    for dtype in ("float32", "float64"):
+        cfg = BiharmonicConfig(nelemd=5400, qsize=10, dtype=dtype, device_init=True,
+                               rrearth=0.1)
+        data = bp.init_data(cfg, dev)
+        q = bp.to_lane_layout(data.qtens)
+        ex, ey = torus_shape(cfg.nelemd)
+        L, w = registry.get("biharmonic_dss2d", "fused_operator_bd8_resident").fn(
+            cfg)["prepare"](data)
+        for prec in ("bf16x3", "highest") if dtype == "float32" else ("highest",):
+            run(f"K19 production {dtype} {prec} n=1",
+                lambda: dr2.dss2d_resident(L, w, q, ex, ey, 1, prec))
+            # the shipped 4 x 4 torus at the depth its loop runs (DEPTH 2)
+            s_cfg = BiharmonicConfig(nelemd=16, qsize=40, dtype=dtype, device_init=True,
+                                     rrearth=0.1)
+            s_data = bp.init_data(s_cfg, dev)
+            s_q = bp.to_lane_layout(s_data.qtens)
+            s_L, s_w = registry.get("biharmonic_dss2d", "fused_operator_bd8_resident").fn(
+                s_cfg)["prepare"](s_data)
+            run(f"K19 shipped {dtype} {prec} n=2",
+                lambda: dr2.dss2d_resident(s_L, s_w, s_q, 4, 4, 2, prec))
+        if dtype == "float64":
+            break
+        Lr, wr, L2 = registry.get("biharmonic_dss", "fused_operator_bd8_resident_sq").fn(
+            cfg)["prepare"](data)
+        for prec in ("bf16x3", "highest"):
+            for sq in (False, True):
+                run(f"K14 production {dtype} {prec} sq={sq} n={dr.DEPTH}",
+                    lambda: dr.dss_resident(Lr, wr, q, dr.DEPTH, prec, L2 if sq else None))
+        m = dmesh.make_mesh(1, dev)
+        q_s, (L_s, w_s) = dbi.make_dist_step_dss(cfg, m)[0](data)
+        L2_s = precompose_operator(L_s.reshape(-1, 16, 16)).reshape(L_s.shape)
+        Le, L2e, we = (dmesh.ring_exchange(x, 8)[0] for x in (L_s, L2_s, w_s))
+        hl, hr = (x[0] for x in dmesh.ring_strips(q_s, 8))
+        for prec in ("bf16x3", "highest"):
+            run(f"K14w production {dtype} {prec} kstep=8",
+                lambda: dr.dss_resident_window(Le, we, hl, q_s[0], hr, 8, prec, L2e))
+        del q_s, L_s, w_s, L2_s, Le, L2e, we, hl, hr
+        F = precompose_operator(L)
+        q_t, (Lt, wt) = dbi.make_dist_loop_dss2d_rowchain(cfg, m)[0](data)
+        Ft = precompose_operator(Lt.reshape(-1, 16, 16)).reshape(Lt.shape)
+        for prec in ("bf16x3", "highest"):
+            # the steps' and bridge-out's input from the plain bridge-in, the
+            # same in either tree
+            t = rc.rowchain_bridge_in_plain(L, q, ex, ey, prec)
+            run(f"K15 production {dtype} {prec}",
+                lambda: rc.rowchain_bridge_in(L, q, ex, ey, prec))
+            run(f"K16 production {dtype} {prec} sq depth 1",
+                lambda: rc.rowchain_step(F, w, t, ex, ey, 1, prec, True))
+            run(f"K18 production {dtype} {prec} sq depth 4",
+                lambda: rc.rowchain_step(F, w, t, ex, ey, 4, prec, True))
+            run(f"K17 production {dtype} {prec}",
+                lambda: rc.rowchain_bridge_out(L, w, t, ex, ey, prec))
+            t_s = rc.rowchain_bridge_in_plain(Lt[0], q_t[0], ex, ey, prec)[None]
+            tp1 = dbi.ring_rows(t_s, ey, 1)[0]
+            tp4 = dbi.ring_rows(t_s, ey, 4)[0]
+            F4, w4 = (dbi.ring_rows(x, ey, 3)[0] for x in (Ft, wt))
+            run(f"K16p production {dtype} {prec} sq depth 1",
+                lambda: rc.rowchain_step_padded(Ft[0], wt[0], tp1, ex, ey, 1, prec, True))
+            run(f"K18p production {dtype} {prec} sq depth 4",  # the owned rows
+                lambda: rc.rowchain_step_padded(F4, w4, tp4, ex, ey, 4, prec, True,
+                                                padded_out=True)[4 * ey:(4 + ex) * ey])
+            run(f"K17p production {dtype} {prec}",
+                lambda: rc.rowchain_bridge_out_padded(Lt[0], wt[0], tp1, ex, ey, prec))
+            del t, t_s, tp1, tp4, F4, w4
+        del data, q, L, w, Lr, wr, L2, F, q_t, Lt, wt, Ft
+    dss2d_leg_times(dev, times)
+
+
+def dss2d_leg_times(dev, times):
+    """--times for the legs that run the rowchain kernels: phase 4's
+    biharmonic_dss2d production legs (rowchain_sq_x3 and rowchain_sq, by
+    run_kernel's slope timing) and phase 5's dist biharmonic_dss2d leg, each
+    verified as in those phases; us/step saved under "leg ..." keys (as ms,
+    like every --times entry)."""
+    from cdk_torch.core.config import production_config
+    from cdk_torch.harness.distbench import run_dist_legs
+    from cdk_torch.harness.driver import run_kernel
+
+    legs = ["fused_operator_rowchain_sq_x3", "fused_operator_rowchain_sq"]
+    for r in run_kernel("biharmonic_dss2d", production_config("biharmonic_dss2d"),
+                        variants=legs, device=dev, quiet=True):
+        if not r.ok:
+            fail(f"leg biharmonic_dss2d production {r.variant}: {r.metrics} {r.note}")
+        times[f"leg biharmonic_dss2d production f32 {r.variant} per step"] = (
+            r.seconds_per_call * 1e3)
+    for r in run_dist_legs({"biharmonic_dss2d": legs[0]}, device=dev, quiet=True):
+        if not r.ok:
+            fail(f"dist leg {r.family}: err {r.err} {r.note}")
+        times[f"leg dist {r.family} production f32 {r.path} per step"] = (
+            r.seconds_per_call * 1e3)
+
+
+def phase_times(dev, card, out: str, against: str | None, kernels: str) -> None:
+    """--times: K3, K13, K12, the MPDATA step kernel and the masked kernel
+    (`kernels` "cke", "mpdata" or "all"), and the DSS kernels ("dss" or
+    "all": dss_times), timed in the tree whose cdk_torch this imports (K3 and
+    K13 at production
     f32 and the shipped size in f64; K12 at the shipped size in f32,
     f64 and bf16; the staged form at production in f32, f64 and bf16, K6
     and K7 one step and K8 four; the hoisted K2 one step, K2 and K9 four;
@@ -1573,7 +1791,8 @@ def phase_times(dev, card, out: str, against: str | None) -> None:
     saved there, and K2's
     and K9's within the family gates (rel L1 on f 1e-6 / 1e-13, on flux
     1e-5 / 1e-13 at f32 / f64: the sweep rounds every operation as the plain
-    version, where the block-per-slice kernel contracted into FMAs)."""
+    version, where the block-per-slice kernel contracted into FMAs).  With
+    `against` each time is printed beside the one saved there."""
     import torch
 
     from cdk_torch.core.config import CkeConfig, MpdataConfig
@@ -1594,7 +1813,8 @@ def phase_times(dev, card, out: str, against: str | None) -> None:
 
     times, outs = {}, {}
     for label, nedges, ncells, dtype in (("production", 256000, 28000, "float32"),
-                                         ("shipped", 25600, 2800, "float64")):
+                                         ("shipped", 25600, 2800, "float64"))[
+                                             :2 if kernels in ("all", "cke") else 0]:
         cfg = CkeConfig(nedges=nedges, ncells=ncells, dtype=dtype, device_init=True)
         d = cp.init_data(cfg, dev)
         c3 = coef3_of(cfg)
@@ -1608,7 +1828,7 @@ def phase_times(dev, card, out: str, against: str | None) -> None:
             outs[key] = run()
             times[key] = timed_ms(run, REPS)
         del d, args, trans
-    for dtype in ("float32", "float64"):
+    for dtype in ("float32", "float64") if kernels in ("all", "cke") else ():
         cfg = CkeConfig(dtype=dtype, device_init=True)
         d = cp.init_data(cfg, dev)
         args = (d.adv_cells, d.adv_coefs, d.adv_coefs3, d.tracer * d.cell_mask,
@@ -1621,7 +1841,8 @@ def phase_times(dev, card, out: str, against: str | None) -> None:
             outs[key + " duplicates"] = cke_onehot(dup, *args[1:], bf16)
             times[key] = timed_ms(lambda: cke_onehot(*args, bf16), REPS)
         del d, args, dup
-    for kind in ("float32", "float64", "bfloat16"):
+    mp_sizes = kernels in ("all", "mpdata")
+    for kind in ("float32", "float64", "bfloat16") if mp_sizes else ():
         cfg = MpdataConfig(nslices=8192, device_init=True,
                            dtype="float64" if kind == "float64" else "float32")
         d = mp.init_data(cfg, dev)
@@ -1638,7 +1859,7 @@ def phase_times(dev, card, out: str, against: str | None) -> None:
             times[key] = timed_ms(lambda: wrapper(*a, n), REPS)
         del d, a
     for label, nslices, dtype in (("shipped", 48, "float32"), ("shipped", 48, "float64"),
-                                  ("production", 8192, "float32")):
+                                  ("production", 8192, "float32")) if mp_sizes else ():
         cfg = MpdataConfig(nslices=nslices, dtype=dtype, device_init=True)
         d = mp.init_data(cfg, dev)
         f_s, u_s, w_s, (rho, rhow, adz, _) = dmp.make_dist_step(
@@ -1663,21 +1884,37 @@ def phase_times(dev, card, out: str, against: str | None) -> None:
                 outs[key] = run()
                 times[key] = timed_ms(run, REPS)
         del d, f_s, u_s, w_s
+    if kernels in ("all", "dss"):
+        dss_times(dev, times, outs)
     torch.cuda.synchronize()
     saved = {k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else (v.cpu(),)
              for k, v in outs.items()}
-    torch.save(saved, out)
+    torch.save({"outputs": saved, "times": times}, out)
+    ref = ref_times = None
+    if against is not None:
+        ref = torch.load(against)
+        ref, ref_times = ref["outputs"], ref["times"]
     for k, ms in times.items():
-        print(f"[times] {k}: {ms:.4f} ms [{card}]")
+        was = (f"; {against} {ref_times[k]:.4f} ms" if ref_times and k in ref_times
+               else "")
+        print(f"[times] {k}: {ms:.4f} ms{was} [{card}]")
     if against is None:
         return
-    ref = torch.load(against)
     differ = []
     for k, got in saved.items():
         if k not in ref:
             print(f"[times] {k}: not in {against}")
             continue
+        if k.split()[0] in DSS_REDESIGNED and "bf16x3" in k:
+            print(f"[times] {k} against {against}: not held (redesigned on the tensor "
+                  f"cores; phase 3 holds it to its plain version)")
+            continue
         same = all(torch.equal(x, y) for x, y in zip(got, ref[k]))
+        if k.split()[0] in DSS_TIMED:  # sha256 digests of the outputs
+            print(f"[times] {k} against {against}: bitwise={same}")
+            if not same:
+                differ.append(k)
+            continue
         diff = max(float((x.double() - y.double()).abs().max())
                    for x, y in zip(got, ref[k]))
         gated = k.split()[0] in ("K2", "K9")
@@ -1702,17 +1939,19 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--times", metavar="OUT", help="phases 1-2, then time K3, K13, "
-                    "K12, the MPDATA step kernel and the masked kernel and save their "
-                    "outputs to OUT")
+                    "K12, the MPDATA step kernel, the masked kernel and the DSS kernels "
+                    "and save their outputs to OUT")
     ap.add_argument("--against", metavar="REF", help="with --times: hold those "
                     "outputs to the ones saved in REF (bitwise; K2 and K9 within "
-                    "the family gates)")
+                    "the family gates) and print REF's times beside")
+    ap.add_argument("--kernels", choices=("all", "cke", "mpdata", "dss"), default="all",
+                    help="with --times: the kernels to time")
     opts = ap.parse_args()
     t0 = time.perf_counter()
     dev, card = phase_device()
     phase_build()
     if opts.times:
-        phase_times(dev, card, opts.times, opts.against)
+        phase_times(dev, card, opts.times, opts.against, opts.kernels)
         return 0
     rows = phase_kernels(dev, card)
     rows.update(phase_fused_and_staged_kernels(dev, card))
@@ -1848,7 +2087,7 @@ def main() -> int:
                           ("K18", "rowchain_step_depth_k", 443)):
         meta[k] = dict(name=name, source=rowchain, replaces=f"{tpu_rowchain}:{line}")
     meta["K19"] = dict(name="biharmonic_dss2d_resident",
-                       source="cdk_torch/csrc/biharmonic_dss_resident.cu",
+                       source="cdk_torch/csrc/biharmonic_dss2d_resident.cu",
                        replaces=f"{tpu_rowchain}:66")
     # the dist modes: K14 fed a window by the ring exchange (both the padded
     # and the split JAX call), and the rowchain on exchanged-row padding

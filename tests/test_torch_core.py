@@ -227,7 +227,8 @@ def test_build_names_and_refuses_without_nvcc(tmp_path, monkeypatch):
     """The library is named by a hash of the sources; with no nvcc the
     build raises instead of falling back."""
     cu = sorted(tbuild.CSRC.glob("*.cu"))
-    assert [p.name for p in cu] == ["biharmonic_dss2d_rowchain.cu",
+    assert [p.name for p in cu] == ["biharmonic_dss2d_resident.cu",
+                                    "biharmonic_dss2d_rowchain.cu",
                                     "biharmonic_dss_resident.cu",
                                     "biharmonic_fused.cu",
                                     "biharmonic_resident.cu", "cke_lanegather.cu",

@@ -380,21 +380,25 @@ def test_dss_resident_tensor_core_forms_match_plain(cuda, ncol):
 
 @pytest.mark.parametrize("exy,ncol", [((4, 4), 40), ((4, 3), 8), ((16, 10), 33),
                                       ((2, 2), 8), ((5, 1), 8), ((30, 21), 33),
-                                      ((3, 25), 8), ((75, 72), 8)])
+                                      ((3, 25), 8), ((75, 72), 8), ((6, 22), 40),
+                                      ((5, 12), 33), ((5, 13), 40), ((4, 9), 33),
+                                      ((75, 72), 40)])
 def test_dss2d_resident_kernel_matches_plain(cuda, exy, ncol):
     """K19, both forms, against its plain version: tori smaller than the
     window (ex = 2: the up and down rows are one row; a row may appear in
     the window more than once), ey = 1 (the j neighbours are the element
-    itself), whole rows at 16-column tiles (ey = 10 at 2 steps, ey = 21 at
-    1), 8 x 8 windows (ey = 10 and 21 at 3 steps, ey = 25 and the
-    production 72 at every depth), a ragged column tile, and 0 to
-    max_steps(ey) steps."""
+    itself), rows that just fit 2k+1 of them in the 64-element whole-row
+    window and rows one element longer, which take the 8 x 8 window (ey =
+    21 / 22 at 1 step, 12 / 13 at 2, 9 / 10 at 3), ey = 25 and the
+    production 72 at every depth, ragged 32- and 16-column tiles (ncol 8,
+    33, 40), and 0 to max_steps(ey) steps."""
     ex, ey = exy
     L64, w64, q64 = _dss_operands(ex * ey, ncol, ex * 100 + ey)
     kmax = dres2.max_steps(ey)
+    depths = range(kmax + 1) if kmax <= 3 else sorted({0, 1, 2, 3, kmax})
     for dtype, prec, gate in DSS_FORMS:
         L, w, q = (x.to(cuda, dtype) for x in (L64, w64, q64))
-        for n in sorted({0, 1, 2, kmax} & set(range(kmax + 1))):
+        for n in depths:
             before = dres2.dss2d_resident.launches
             out = dres2.dss2d_resident(L, w, q, ex, ey, n, prec)
             torch.cuda.synchronize()
@@ -404,11 +408,14 @@ def test_dss2d_resident_kernel_matches_plain(cuda, exy, ncol):
 
 
 @pytest.mark.parametrize("exy,ncol", [((4, 4), 40), ((4, 3), 8), ((16, 10), 33),
-                                      ((2, 2), 8), ((3, 9), 40)])
+                                      ((2, 2), 8), ((3, 9), 40), ((3, 1), 33),
+                                      ((2, 72), 33)])
 def test_rowchain_kernels_match_plain(cuda, exy, ncol):
     """The bridges (K15, K17) and the step at depths 1-5 (K16, K18)
     against their plain versions on small tori (ex = 2: the up and down
-    rows are one row; ey = 9: a row spans two blocks), and each depth-k
+    rows are one row; ey = 9: a row spans two blocks; ey = 1: the j
+    neighbours are the element itself), the production row of 72 (whole
+    tiles of every mode), a ragged column tile (ncol 33), and each depth-k
     step bitwise against k depth-1 launches."""
     ex, ey = exy
     L64, w64, q64 = _dss_operands(ex * ey, ncol, ex * 100 + ey)
@@ -433,6 +440,27 @@ def test_rowchain_kernels_match_plain(cuda, exy, ncol):
                 assert rel_l2(deep, ref) < gate, (dtype, prec, sq, k)
                 one = rc.rowchain_step(F, w, one, ex, ey, 1, prec, sq)
                 assert torch.equal(deep, one), (dtype, prec, sq, k)
+
+
+def test_rowchain_refuses_misaligned_operators(cuda):
+    """The rowchain kernel copies each element's operator and inverse mass
+    in 16-byte pieces: an operator or w that starts off 16-byte alignment
+    is refused before the launch, in every mode, and no launch is
+    counted."""
+    ex, ey = 3, 4
+    L64, w64, q64 = _dss_operands(ex * ey, 8, 1)
+    L, w, q = (x.to(cuda, torch.float32) for x in (L64, w64, q64))
+    Lx = torch.empty(L.numel() + 1, device=cuda)[1:].view_as(L).copy_(L)
+    wx = torch.empty(w.numel() + 1, device=cuda)[1:].view_as(w).copy_(w)
+    counters = (rc.rowchain_bridge_in, rc.rowchain_step, rc.rowchain_bridge_out)
+    before = [f.launches for f in counters]
+    with pytest.raises(ValueError, match="16-byte"):
+        rc.rowchain_bridge_in(Lx, q, ex, ey)
+    with pytest.raises(ValueError, match="16-byte"):
+        rc.rowchain_step(L, wx, q, ex, ey)
+    with pytest.raises(ValueError, match="16-byte"):
+        rc.rowchain_bridge_out(Lx, w, q, ex, ey)
+    assert [f.launches for f in counters] == before
 
 
 @pytest.mark.parametrize("ey", [rc.STEP_ELEMS - 1, rc.STEP_ELEMS + 1,
