@@ -45,6 +45,10 @@
 //           step first copies the neighbours' three rows it reads (between
 //           two block barriers), and the flux rows go to shared memory, where
 //           the first warp sums them in x order, so the split changes no bit.
+//   LANES   the staged step (one step, not MASKED) on K10's (x, z, s) layout,
+//           where a slice's levels lie nslices apart: the rows come and go
+//           through shared-memory tiles of a block's W slices side by side
+//           (struct Lanes below); the stage chain is the same code.
 //
 // Several steps run in one launch (K2, K8, K9, K24, K25): f moves from its
 // input to a window-sized buffer in the first step, and later steps sweep
@@ -71,6 +75,14 @@ constexpr int MAX_LEVELS = 32 * 8;  // nzm the sweep takes (L <= 8)
 constexpr int FEW_SLICES = 1024;
 constexpr int SPLIT_WARPS = 8;
 constexpr unsigned FULL = 0xffffffffu;
+// The (x, z, s) sweep's block: LANES_WARPS warps, W = LANES_WARPS / chunks
+// slices side by side; the tile rows (f, u and w rows) in shared memory at
+// once; the finished f rows its ring holds (row r leaves at iteration r + 4,
+// after rows r + 1 .. r + 4 may have gone in); the rows of a chunk's tiles
+constexpr int LANES_WARPS = 8;
+constexpr int LANES_TILES = 2;
+constexpr int LANES_RING = 5;
+constexpr int LANES_ROWS = 3 * LANES_TILES + LANES_RING;
 
 // storage <-> compute conversions: the identity, or bf16 rounding
 template <typename S, typename C>
@@ -181,6 +193,182 @@ struct Sweep {
   int nslices, rows, nzm, nx, gi0, owned_lo, owned_hi, halo, nsteps, chunks;
 };
 
+// K10's (x, z, s) layout (LANES): element (x, k, s) of a field of `levels`
+// levels lies at (x levels + k) nslices + s, so a slice's levels are nslices
+// apart and a level's slices side by side.  A block holds W slices side by
+// side, warp j of each chunk sweeping slice s0 + j, and each chunk's threads
+// move its rows between device and shared memory as runs of W slices:
+// thread t of the chunk copies slice t % W at levels t / W, t / W + 32, ...,
+// one element a cp.async, so a warp's requests are W consecutive elements of
+// each of 32 / W levels.  In shared memory a slice's levels lie at a pitch of
+// P elements (lanes_pitch), where a warp reads its L levels a lane as
+// vectors and the copies of a warp fall on distinct banks.  LANES_TILES
+// buffers, each a tile row (iteration r's f row r and u and w row r - 1, the
+// resident step's one-row offset), take turns: tile row p + LANES_TILES is
+// put in flight while iteration p computes, one group of copies an
+// iteration, and one barrier a row orders the copies and the reads.  The f
+// rows the sweep finishes go to a ring of LANES_RING rows and leave it after
+// the barrier four iterations on (row r is final at iteration r + 3), and
+// the flux row at the end likewise, as runs of W slices.
+
+// a tile's pitch: 32 L levels and a pad, a multiple of the lanes' vector
+// width, that puts the copies of a warp (32 / W levels of W slices) on
+// distinct banks
+__host__ __device__ inline int lanes_pitch(int L, int W, int esize) {
+  const int words = esize / 4, vec = L * esize < 16 ? L : 16 / esize;
+  int pad = (32 / (W * words)) % (32 / words);
+  if (pad < vec) pad = vec;
+  return 32 * L + (pad + vec - 1) / vec * vec;
+}
+
+template <typename S, typename C>
+__host__ inline size_t lanes_smem_bytes(int L, int chunks, int nflux) {
+  const int W = LANES_WARPS / chunks;
+  return static_cast<size_t>(chunks) * LANES_ROWS * W * lanes_pitch(L, W, sizeof(S)) *
+             sizeof(S) +
+         (chunks == 1 ? 0 : 2 * static_cast<size_t>(nflux) * W * 32 * L * sizeof(C));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(N)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a lane's L consecutive levels in shared memory, as vectors of up to 16 bytes
+template <int L, typename S>
+__device__ __forceinline__ void lds_vec(S (&v)[L], const S* p) {
+  if constexpr (sizeof(S) == 4 && L == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else if constexpr (sizeof(S) == 4) {
+#pragma unroll
+    for (int q = 0; q < L / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < L / 2; ++q) {
+      const double2 x = reinterpret_cast<const double2*>(p)[q];
+      v[2 * q] = x.x;
+      v[2 * q + 1] = x.y;
+    }
+  }
+}
+template <int L, typename S>
+__device__ __forceinline__ void sts_vec(S* p, const S (&v)[L]) {
+  if constexpr (sizeof(S) == 4 && L == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else if constexpr (sizeof(S) == 4) {
+#pragma unroll
+    for (int q = 0; q < L / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < L / 2; ++q)
+      reinterpret_cast<double2*>(p)[q] = make_double2(v[2 * q], v[2 * q + 1]);
+  }
+}
+
+// One chunk's tiles of the (x, z, s) layout, from one warp's view.
+template <typename S, typename C, int L>
+struct Lanes {
+  using Row = Lv<L, C>;
+  S* buf;         // the chunk's tile rows: [LANES_TILES][f, u, w][W][P]
+  S* ring;        // its finished rows: [LANES_RING][W][P]
+  long long s0;   // the block's first slice
+  int W, P, j, k0, live, cj, ck, bar, threads;
+
+  __device__ void sync() const { bar_sync(bar, threads); }
+  // this thread's copies of row x of a field of `levels` levels into dst
+  __device__ void copy(S* dst, const S* src, long long ns, int x, int levels,
+                       int nzm) const {
+    if (cj >= live) return;
+    const S* from = src + (static_cast<long long>(x) * levels + ck) * ns + s0 + cj;
+    for (int k = ck; k < nzm; k += 32, from += 32 * ns)
+      cp_async_elem<sizeof(S)>(dst + cj * P + k, from);
+  }
+  __device__ S* tile(int r, int field) const {
+    return buf + ((r % LANES_TILES) * 3 + field) * W * P;
+  }
+  // a group of copies of tile row r up to row `last` (empty past it): f row
+  // r, u and w row r - 1, where they exist
+  __device__ void fetch(const Sweep<S>& a, int r, int last, int xu, int xw) const {
+    const long long ns = a.nslices;
+    if (r <= last) {
+      if (r < a.rows) copy(tile(r, 0), a.f, ns, r, a.nzm, a.nzm);
+      if (r >= 1 && r - 1 < xu) copy(tile(r, 1), a.u, ns, r - 1, a.nzm, a.nzm);
+      if (r >= 1 && r - 1 < xw) copy(tile(r, 2), a.w, ns, r - 1, a.nzm + 1, a.nzm);
+    }
+    cp_async_commit_group();
+  }
+  // every group but the last `PENDING` has landed, in every thread
+  template <int PENDING>
+  __device__ void ready() const {
+    cp_async_wait_group<PENDING>();
+    sync();
+  }
+  // this warp's levels of a field (0 f, 1 u, 2 w) of tile row r
+  __device__ Row row(const Sweep<S>& a, int r, int field) const {
+    S v[L];
+    lds_vec<L, S>(v, tile(r, field) + j * P + k0);
+    Row x;
+    EACH(i) x.v[i] = k0 + i < a.nzm ? Cvt<S, C>::ld(v[i]) : C(0);
+    return x;
+  }
+  // rho, adz and rhow (tile row 0's buffer, before the first fetch)
+  __device__ void levels(const Sweep<S>& a, Row (&lv)[3]) const {
+    const long long ns = a.nslices;
+    copy(tile(0, 0), a.rho, ns, 0, a.nzm, a.nzm);
+    copy(tile(0, 1), a.adz, ns, 0, a.nzm, a.nzm);
+    copy(tile(0, 2), a.rhow, ns, 0, a.nzm + 1, a.nzm);
+    cp_async_commit_group();
+    ready<0>();
+    for (int q = 0; q < 3; ++q) lv[q] = row(a, 0, q);
+    sync();
+  }
+  // f row r into the ring
+  __device__ void put(const Sweep<S>&, int r, const Row& x) const {
+    S v[L];
+    EACH(i) v[i] = Cvt<S, C>::st(x.v[i]);
+    sts_vec<L, S>(ring + ((r % LANES_RING) * W + j) * P + k0, v);
+  }
+  // the ring's row r to row x of dst (nzm levels a row), as runs of W slices
+  __device__ void drain(int r, S* dst, long long ns, int x, int nzm) const {
+    if (cj >= live) return;
+    const S* from = ring + ((r % LANES_RING) * W + cj) * P;
+    S* to = dst + (static_cast<long long>(x) * nzm + ck) * ns + s0 + cj;
+    for (int k = ck; k < nzm; k += 32, to += 32 * ns) *to = from[k];
+  }
+  __device__ void flush(const Sweep<S>& a, int r) const {
+    drain(r, a.f_out, a.nslices, r, a.nzm);
+  }
+  // flux(:, k < nzm) through the ring, once its f rows have left
+  __device__ void store_flux(const Sweep<S>& a, const Row& x) const {
+    sync();
+    put(a, 0, x);
+    sync();
+    drain(0, a.flux_out, a.nslices, 0, a.nzm);
+  }
+};
+
 // the flux rows: the owned rows whose gi lies in [1, nx]
 __host__ __device__ inline int flux_lo(int gi0, int owned_lo) {
   return owned_lo > 1 - gi0 ? owned_lo : 1 - gi0;
@@ -198,8 +386,9 @@ __host__ inline size_t sweep_smem_bytes(int nflux, int L, int chunks) {
   return chunks == 1 ? 0 : (2 * (size_t)nflux + 6 * (size_t)chunks) * 32 * L * sizeof(C);
 }
 
-template <typename S, typename C, int L, bool SPLIT, bool HOIST, bool MASKED>
-__global__ void __launch_bounds__(SPLIT ? 32 * MAX_CHUNKS : 32 * SWEEP_WARPS)
+template <typename S, typename C, int L, bool SPLIT, bool HOIST, bool MASKED, bool LANES = false>
+__global__ void __launch_bounds__(LANES ? 32 * LANES_WARPS
+                                        : SPLIT ? 32 * MAX_CHUNKS : 32 * SWEEP_WARPS)
 mpdata_sweep_kernel(const Sweep<S> a) {
   using V = Cvt<S, C>;
   using Row = Lv<L, C>;
@@ -207,10 +396,13 @@ mpdata_sweep_kernel(const Sweep<S> a) {
   auto rnd = [](C x) { return V::ld(V::st(x)); };
   const int chunks = SPLIT ? a.chunks : 1;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int c = SPLIT ? warp : 0;  // the warp's chunk of its slice
-  const long long s = SPLIT ? static_cast<long long>(blockIdx.x)
-                            : static_cast<long long>(blockIdx.x) * SWEEP_WARPS + warp;
-  if (s >= a.nslices) return;
+  // LANES: the block's W slices side by side, warp j of each chunk on slice j
+  const int W = LANES ? LANES_WARPS / chunks : 1, j = LANES ? warp % W : 0;
+  const int c = LANES ? warp / W : SPLIT ? warp : 0;  // the warp's chunk of its slice
+  const long long s = LANES   ? static_cast<long long>(blockIdx.x) * W + j
+                      : SPLIT ? static_cast<long long>(blockIdx.x)
+                              : static_cast<long long>(blockIdx.x) * SWEEP_WARPS + warp;
+  if (!LANES && s >= a.nslices) return;  // a LANES warp past the end sweeps, stores nothing
   const int nzm = a.nzm, nz = nzm + 1, rows = a.rows, nx = a.nx, gi0 = a.gi0;
   const int k0 = L * lane, NZP = 32 * L;
   // u and w: the masked step's rows are the window's; the resident step's
@@ -260,10 +452,27 @@ mpdata_sweep_kernel(const Sweep<S> a) {
   C* fluxrow = reinterpret_cast<C*>(smem_raw);
   C* haloc = reinterpret_cast<C*>(smem_raw) + (2 * NF + warp * 6) * NZP;
   const int fstride = MASKED ? nzm : nz;
+  // LANES: each chunk's tile rows and ring, then the split's flux rows
+  Lanes<S, C, L> io{};
+  if constexpr (LANES) {
+    const long long s0 = static_cast<long long>(blockIdx.x) * W;
+    const long long left = a.nslices - s0;
+    const int P = lanes_pitch(L, W, sizeof(S)), tc = threadIdx.x - c * W * 32;
+    S* mine = reinterpret_cast<S*>(smem_raw) + c * LANES_ROWS * W * P;
+    io = Lanes<S, C, L>{mine, mine + 3 * LANES_TILES * W * P, s0, W, P, j, k0,
+                        left < W ? static_cast<int>(left) : W, tc % W, tc / W, 1 + c, W * 32};
+    fluxrow = reinterpret_cast<C*>(smem_raw + static_cast<size_t>(chunks) * LANES_ROWS * W *
+                                                  P * sizeof(S));
+  }
 
-  if (!MASKED && lane == 0 && c == 0)
-    a.flux_out[s * nz + nzm] = a.flux_in[s * nz + nzm];  // flux(:, nz)
-  if (a.nsteps == 0) {
+  if (!MASKED && lane == 0 && c == 0) {  // flux(:, nz)
+    if constexpr (LANES) {
+      if (s < a.nslices) a.flux_out[nzm * a.nslices + s] = a.flux_in[nzm * a.nslices + s];
+    } else {
+      a.flux_out[s * nz + nzm] = a.flux_in[s * nz + nzm];
+    }
+  }
+  if (!LANES && a.nsteps == 0) {
     for (int j = own_lo; j < own_hi; ++j) {
       S* d = out_row(0, j);
       if (d != nullptr) store_row<L, S, C>(d, load_row<L, S, C>(input_row(j), k0, nzm), k0, nzm);
@@ -279,12 +488,21 @@ mpdata_sweep_kernel(const Sweep<S> a) {
 
   // per-level fields, as the storage type holds them
   Row irho, iadz, dd, irhow, rho;
+  Row lv[3];  // LANES: rho, adz, rhow from the tile
+  if constexpr (LANES) io.levels(a, lv);
   EACH(i) {
     const int k = k0 + i;
     const bool inz = k < nzm;
-    const C r = inz ? V::ld(a.rho[s * nzm + k]) : C(1);
-    const C ac = inz ? V::ld(a.adz[s * nzm + k]) : C(1);
-    const C rw = inz ? V::ld(a.rhow[s * nz + k]) : C(1);
+    C r, ac, rw;
+    if constexpr (LANES) {
+      r = inz ? lv[0].v[i] : C(1);
+      ac = inz ? lv[1].v[i] : C(1);
+      rw = inz ? lv[2].v[i] : C(1);
+    } else {
+      r = inz ? V::ld(a.rho[s * nzm + k]) : C(1);
+      ac = inz ? V::ld(a.adz[s * nzm + k]) : C(1);
+      rw = inz ? V::ld(a.rhow[s * nz + k]) : C(1);
+    }
     const int span = inz ? min(nzm - 1, k + 1) - max(0, k - 1) : 1;
     irho.v[i] = rnd(dv(C(1), r));
     iadz.v[i] = rnd(dv(C(1), ac));
@@ -298,7 +516,7 @@ mpdata_sweep_kernel(const Sweep<S> a) {
     // a later step of a split slice reads the rows its neighbours write in
     // this step: each warp first copies the halo rows it does not own, once
     // every warp has finished the step before
-    const bool split = step > 0 && chunks > 1;
+    const bool split = !LANES && step > 0 && chunks > 1;
     if (split) {
       __syncthreads();
       for (int j = 0; j < 3; ++j) {
@@ -335,10 +553,21 @@ mpdata_sweep_kernel(const Sweep<S> a) {
     Row a1{}, b1{}, b2{}, g1{}, g2{}, g3{}, gkb1{}, gkb2{}, gkb3{}, gkc1{}, gkc2{};
     Row mxfP{}, mnfP{}, U2a{}, MXr{}, MNr{}, U3a{}, W3a{};
     EACH(i) fl1.v[i] = fl2.v[i] = C(0);
-    Row nf = load_f(p0), nu{}, nw{};
-    if (p0 - uoff >= 0) {
-      nu = load_row<L, S, C>(us + (p0 - uoff) * nzm, k0, nzm);
-      nw = load_row<L, S, C>(ws + (p0 - uoff) * nz, k0, nzm);
+    Row nf, nu{}, nw{};
+    if constexpr (LANES) {  // tile rows p0 .. p0 + LANES_TILES - 1 in flight, p0 read
+      for (int r = p0; r < p0 + LANES_TILES; ++r) io.fetch(a, r, p1, XU, XW);
+      io.template ready<LANES_TILES - 1>();
+      nf = io.row(a, p0, 0);
+      if (p0 - uoff >= 0) {
+        nu = io.row(a, p0, 1);
+        nw = io.row(a, p0, 2);
+      }
+    } else {
+      nf = load_f(p0);
+      if (p0 - uoff >= 0) {
+        nu = load_row<L, S, C>(us + (p0 - uoff) * nzm, k0, nzm);
+        nw = load_row<L, S, C>(ws + (p0 - uoff) * nz, k0, nzm);
+      }
     }
     // the rows iteration p loads ahead, as running pointers (which nvcc
     // keeps in registers, where it recomputed base + row * stride)
@@ -355,10 +584,24 @@ mpdata_sweep_kernel(const Sweep<S> a) {
       w3 = w2;
       w2 = w1;
       w1 = nw;
-      if (p < p1 && (!MASKED || p + 1 < rows))
-        nf = split || pick ? load_f(p + 1) : load_row<L, S, C>(fnext, k0, nzm);
-      if (p + 1 - uoff < XU) nu = load_row<L, S, C>(unext, k0, nzm);
-      if (p + 1 - uoff < XW) nw = load_row<L, S, C>(wnext, k0, nzm);
+      if constexpr (LANES) {
+        // tile row p + 1 has landed and every warp has read row p's buffer:
+        // read p + 1 (nothing after the last row), send the ring's row p - 4
+        // out, and put row p + LANES_TILES in flight in row p's buffer
+        io.template ready<LANES_TILES - 2>();
+        if (p < p1) {
+          nf = io.row(a, p + 1, 0);
+          if (p + 1 - uoff < XU) nu = io.row(a, p + 1, 1);
+          if (p + 1 - uoff < XW) nw = io.row(a, p + 1, 2);
+        }
+        if (p >= 4 && owned(p - 4)) io.flush(a, p - 4);
+        io.fetch(a, p + LANES_TILES, p1, XU, XW);
+      } else {
+        if (p < p1 && (!MASKED || p + 1 < rows))
+          nf = split || pick ? load_f(p + 1) : load_row<L, S, C>(fnext, k0, nzm);
+        if (p + 1 - uoff < XU) nu = load_row<L, S, C>(unext, k0, nzm);
+        if (p + 1 - uoff < XW) nw = load_row<L, S, C>(wnext, k0, nzm);
+      }
       if (MASKED && p == rows) u1 = u2;  // u's row X is its row X-1
       if (MASKED && p == 0) {            // f's and w's row -1 are their row 0
         fB = fA;
@@ -515,14 +758,14 @@ mpdata_sweep_kernel(const Sweep<S> a) {
         if (chunks == 1) {
           EACH(i) fl1.v[i] = ad(fl1.v[i], b1.v[i]);
         } else if (step == a.nsteps - 1) {
-          EACH(i) fluxrow[(p - flo) * NZP + k0 + i] = b1.v[i];
+          EACH(i) fluxrow[((p - flo) * W + j) * NZP + k0 + i] = b1.v[i];
         }
       }
       if (fluxed(p - 2)) {
         if (chunks == 1) {
           EACH(i) fl2.v[i] = ad(fl2.v[i], W3a.v[i]);
         } else if (step == a.nsteps - 1) {
-          EACH(i) fluxrow[(NF + p - 2 - flo) * NZP + k0 + i] = W3a.v[i];
+          EACH(i) fluxrow[((NF + p - 2 - flo) * W + j) * NZP + k0 + i] = W3a.v[i];
         }
       }
       if (MASKED) {  // every row is the final update (or f1 outside its range)
@@ -532,12 +775,25 @@ mpdata_sweep_kernel(const Sweep<S> a) {
         }
       } else {  // rows 0 and nx+5 pass through, 1, 2, nx+3 and nx+4 are f1,
                 // 3..nx+2 the final update
-        if ((p == 0 || p == rows - 1) && owned(p)) store_row<L, S, C>(wbuf + p * nzm, fA, k0, nzm);
-        if ((p == 2 || p == 3 || p == nx + 4 || p == nx + 5) && owned(p - 1))
-          store_row<L, S, C>(wbuf + (p - 1) * nzm, g1, k0, nzm);
-        if (p >= 6 && owned(p - 3)) store_row<L, S, C>(wbuf + (p - 3) * nzm, fN, k0, nzm);
+        if constexpr (LANES) {
+          if ((p == 0 || p == rows - 1) && owned(p)) io.put(a, p, fA);
+          if ((p == 2 || p == 3 || p == nx + 4 || p == nx + 5) && owned(p - 1))
+            io.put(a, p - 1, g1);
+          if (p >= 6 && owned(p - 3)) io.put(a, p - 3, fN);
+        } else {
+          if ((p == 0 || p == rows - 1) && owned(p))
+            store_row<L, S, C>(wbuf + p * nzm, fA, k0, nzm);
+          if ((p == 2 || p == 3 || p == nx + 4 || p == nx + 5) && owned(p - 1))
+            store_row<L, S, C>(wbuf + (p - 1) * nzm, g1, k0, nzm);
+          if (p >= 6 && owned(p - 3)) store_row<L, S, C>(wbuf + (p - 3) * nzm, fN, k0, nzm);
+        }
       }
     }
+  }
+  if constexpr (LANES) {  // the ring's last four rows
+    io.sync();
+    for (int r = p1 - 3 > 0 ? p1 - 3 : 0; r <= p1; ++r)
+      if (owned(r)) io.flush(a, r);
   }
   if (chunks > 1) {  // the first warp of a split slice sums its flux rows
     __syncthreads();
@@ -545,29 +801,45 @@ mpdata_sweep_kernel(const Sweep<S> a) {
     EACH(i) fl1.v[i] = fl2.v[i] = C(0);
     for (int r = 0; r < NF; ++r) {
       EACH(i) {
-        fl1.v[i] = ad(fl1.v[i], fluxrow[r * NZP + k0 + i]);
-        fl2.v[i] = ad(fl2.v[i], fluxrow[(NF + r) * NZP + k0 + i]);
+        fl1.v[i] = ad(fl1.v[i], fluxrow[(r * W + j) * NZP + k0 + i]);
+        fl2.v[i] = ad(fl2.v[i], fluxrow[((NF + r) * W + j) * NZP + k0 + i]);
       }
     }
   }
   // flux(:, k < nzm) = (the www sum) + (the www3 sum), each as S holds it
-  EACH(i) {
-    if (k0 + i < nzm) a.flux_out[s * fstride + k0 + i] = V::st(ad(rnd(fl1.v[i]), rnd(fl2.v[i])));
+  if constexpr (LANES) {
+    Row x;
+    EACH(i) x.v[i] = ad(rnd(fl1.v[i]), rnd(fl2.v[i]));
+    io.store_flux(a, x);
+  } else {
+    EACH(i) {
+      if (k0 + i < nzm)
+        a.flux_out[s * fstride + k0 + i] = V::st(ad(rnd(fl1.v[i]), rnd(fl2.v[i])));
+    }
   }
 }
 
-template <typename S, typename C, int L, bool SPLIT, bool HOIST, bool MASKED>
+// the shared memory a launch asks for
+template <typename S, typename C, bool LANES>
+__host__ inline size_t smem_bytes(int nflux, int L, int chunks) {
+  return LANES ? lanes_smem_bytes<S, C>(L, chunks, nflux)
+               : sweep_smem_bytes<C>(nflux, L, chunks);
+}
+
+template <typename S, typename C, int L, bool SPLIT, bool HOIST, bool MASKED, bool LANES>
 int launch_sweep(const Sweep<S>& a, void* stream) {
-  const size_t bytes = sweep_smem_bytes<C>(
+  const size_t bytes = smem_bytes<S, C, LANES>(
       flux_rows(a.gi0, a.nx, a.owned_lo, a.owned_hi), L, a.chunks);
-  auto kernel = mpdata_sweep_kernel<S, C, L, SPLIT, HOIST, MASKED>;
+  auto kernel = mpdata_sweep_kernel<S, C, L, SPLIT, HOIST, MASKED, LANES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>(
-      SPLIT ? a.nslices : (a.nslices + SWEEP_WARPS - 1) / SWEEP_WARPS);
-  kernel<<<blocks, SPLIT ? 32 * a.chunks : 32 * SWEEP_WARPS, bytes,
-           static_cast<cudaStream_t>(stream)>>>(a);
+  // slices a block: LANES_WARPS / chunks side by side, one split slice, or
+  // SWEEP_WARPS whole ones
+  const int per_block = LANES ? LANES_WARPS / a.chunks : SPLIT ? 1 : SWEEP_WARPS;
+  const unsigned blocks = static_cast<unsigned>((a.nslices + per_block - 1) / per_block);
+  kernel<<<blocks, LANES ? 32 * LANES_WARPS : SPLIT ? 32 * a.chunks : 32 * SWEEP_WARPS,
+           bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,7 +847,7 @@ int launch_sweep(const Sweep<S>& a, void* stream) {
 // or 2, 4 or 8 where its rows and shared memory allow, nzm <= 64); 0 picks:
 // SPLIT_WARPS below FEW_SLICES slices where they fit, else one.  Returns a
 // CUDA error code (cudaErrorInvalidValue for a geometry it does not take).
-template <typename S, typename C, bool HOIST, bool MASKED>
+template <typename S, typename C, bool HOIST, bool MASKED, bool LANES = false>
 int launch_mpdata_sweep(Sweep<S> a, int warps, void* stream) {
   if (a.nzm < 1 || a.nzm > MAX_LEVELS || a.rows < 1 || warps < 0 || warps > MAX_CHUNKS ||
       (warps & (warps - 1)) != 0)
@@ -586,7 +858,7 @@ int launch_mpdata_sweep(Sweep<S> a, int warps, void* stream) {
   const int nflux = flux_rows(a.gi0, a.nx, a.owned_lo, a.owned_hi);
   auto fits = [&](int k) {  // k warps a slice, each writing 4 rows or more
     return a.nzm <= 64 && a.rows - 6 >= 4 * k &&
-           sweep_smem_bytes<C>(nflux, 2, k) <= static_cast<size_t>(optin);
+           smem_bytes<S, C, LANES>(nflux, 2, k) <= static_cast<size_t>(optin);
   };
   int chunks = warps;
   if (chunks == 0) {
@@ -597,10 +869,10 @@ int launch_mpdata_sweep(Sweep<S> a, int warps, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.chunks = chunks;
-  if (chunks > 1) return launch_sweep<S, C, 2, true, HOIST, MASKED>(a, stream);
-  if (a.nzm <= 64) return launch_sweep<S, C, 2, false, HOIST, MASKED>(a, stream);
-  if (a.nzm <= 128) return launch_sweep<S, C, 4, false, HOIST, MASKED>(a, stream);
-  return launch_sweep<S, C, 8, false, HOIST, MASKED>(a, stream);
+  if (chunks > 1) return launch_sweep<S, C, 2, true, HOIST, MASKED, LANES>(a, stream);
+  if (a.nzm <= 64) return launch_sweep<S, C, 2, false, HOIST, MASKED, LANES>(a, stream);
+  if (a.nzm <= 128) return launch_sweep<S, C, 4, false, HOIST, MASKED, LANES>(a, stream);
+  return launch_sweep<S, C, 8, false, HOIST, MASKED, LANES>(a, stream);
 }
 
 }  // namespace

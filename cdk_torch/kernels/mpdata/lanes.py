@@ -2,19 +2,25 @@
 (x, z, s) — the JAX package's `pallas_lanes` design study.
 
 Replaces cdk_tpu/kernels/mpdata/pallas_lanes.py::_kernel (experimental, as
-there).  The variant exists for its layout: slices innermost, so a warp's
-loads are 32 consecutive slices of one (x, z) point.  The JAX form pads z
+there).  The variant exists for its layout: slices innermost, so the
+slices of one (x, z) point lie side by side.  The JAX form pads z
 to a sublane multiple and the slice batch to 128-slice lane blocks; both
 are TPU tiling and are not ported.
 
-The CUDA kernel (csrc/mpdata_lanes.cu) splits the step into four launches
-over (x, z, s) temporaries in device memory, one thread per point.  Beside
-it here: `advect_lanes_plain`, the same step in plain PyTorch (the staged
-reference on the (s, x, z) view), and the wrapper `advect_lanes`, which
-launches the kernel for CUDA tensors and runs the plain version for CPU
-tensors.  `to_xzs`/`from_xzs` change the layout; the variant's `loop`
-changes it once per call, as the JAX `_loop` does, and its public
-functions keep the canonical (S, X, Z) layout.
+The CUDA kernel (csrc/mpdata_lanes.cu) runs the step in one launch: the
+staged x sweep of csrc/mpdata_sweep.cuh (a warp per slice, the stage rows
+in registers), fed from and drained to the (x, z, s) layout through
+shared-memory tiles of a block's slices side by side, with no temporary
+in device memory; below 1024 slices a slice's x range splits among up to
+8 warps.  Every operation rounds as the plain version's, so f is bit for
+bit `advect_lanes_plain`'s at f32 and f64; the flux column sums run in x
+order.  It takes up to 256 levels (nzm) and raises UnsupportedConfigError
+past that.  Beside it here: `advect_lanes_plain`, the same step in plain
+PyTorch (the staged reference on the (s, x, z) view), and the wrapper
+`advect_lanes`, which launches the kernel for CUDA tensors and runs the
+plain version for CPU tensors.  `to_xzs`/`from_xzs` change the layout;
+the variant's `loop` changes it once per call, as the JAX `_loop` does,
+and its public functions keep the canonical (S, X, Z) layout.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
+from cdk_torch.kernels.mpdata.launch import check_levels, check_warps
 from cdk_torch.kernels.mpdata.problem import MpdataData
 from cdk_torch.kernels.mpdata.reference import advect_scalar2d
 
@@ -54,7 +61,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library()
     for name in ("cdk_mpdata_lanes_f32", "cdk_mpdata_lanes_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -73,12 +80,15 @@ def _validate(f, u, w, rho, rhow, adz, flux):
                             f"must be {f.dtype} on {f.device}")
     if f.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"advect_lanes takes float32 or float64, not {f.dtype}")
+    if f.is_cuda:
+        check_levels(nzm, "advect_lanes")
 
 
-def advect_lanes(f, u, w, rho, rhow, adz, flux):
+def advect_lanes(f, u, w, rho, rhow, adz, flux, *, warps=None):
     """One step on (x, z, s) fields; returns (f, flux) in (x, z, s).  CUDA
     tensors launch the kernel (never anything else); CPU tensors run
-    advect_lanes_plain."""
+    advect_lanes_plain.  `warps` sets the warps a slice (1, 2, 4 or 8)
+    where the kernel's own choice by slice count is not wanted."""
     args = (f, u, w, rho, rhow, adz, flux)
     _validate(*args)
     if f.device.type == "cpu":
@@ -86,31 +96,27 @@ def advect_lanes(f, u, w, rho, rhow, adz, flux):
     if not all(t.is_contiguous() for t in args):
         raise ValueError("advect_lanes needs contiguous fields")
     xf, nzm, s = f.shape
-    nx = xf - 6
-    new = functools.partial(torch.empty, dtype=f.dtype, device=f.device)
-    scratch = (new(nx + 6, nzm, s), new(nx + 3, nzm, s), new(nx + 2, nzm, s),
-               new(nx + 2, nzm, s), new(nx + 2, nzm, s), new(nzm, s))
     f_out, flux_out = torch.empty_like(f), torch.empty_like(flux)
     fn = (_lib().cdk_mpdata_lanes_f32 if f.dtype == torch.float32
           else _lib().cdk_mpdata_lanes_f64)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     with torch.cuda.device(f.device):
-        err = fn(*(t.data_ptr() for t in args + scratch), f_out.data_ptr(),
-                 flux_out.data_ptr(), s, nx, nzm, stream)
+        err = fn(*(t.data_ptr() for t in args), f_out.data_ptr(),
+                 flux_out.data_ptr(), s, xf - 6, nzm, check_warps(warps), stream)
     build.check(err, "advect_lanes")
     advect_lanes.launches += 1
     return f_out, flux_out
 
 
-advect_lanes.launches = 0  # wrapper calls that launched the kernel's four passes
+advect_lanes.launches = 0  # kernel launches in this process, one a call
 
 
 @register(
     "mpdata",
     "pallas_lanes",
     "staged step with the slice batch on the fast axis ((x, z, s) layout): "
-    "a warp's loads are 32 consecutive slices; the step is four passes over "
-    "device-memory temporaries (design study, see the module docstring)",
+    "rows move as runs of consecutive slices through shared-memory tiles "
+    "feeding the one-launch x sweep (design study, see the module docstring)",
     experimental=True,
 )
 def make_pallas_lanes(cfg):

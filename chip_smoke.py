@@ -26,9 +26,11 @@ Phases, each printing its result; the first failure exits non-zero:
               precisions), K5, the staged MPDATA kernel (K6 and K7 at one
               step, K8 at 4 in one launch, and the bf16 form; K8 bitwise
               equal to four K6 launches), K9 and K10 at shipped f32/f64 and
-              production f32; the MPDATA sweep at the shipped 48 slices
-              with 1, 2, 4 and 8 warps a slice (K2, K6, K8, K22-K25),
-              outputs bitwise equal across the counts; the card's L2 read
+              production f32 (K10's f bit for bit its plain version's, and
+              at production f32 K10 bitwise equal to K6 on the same data);
+              the MPDATA sweep at the shipped 48 slices with 1, 2, 4 and 8
+              warps a slice (K2, K6, K8, K10, K22-K25), outputs bitwise
+              equal across the counts; the card's L2 read
               rate (a probe reading an L2-resident 11.2 MB buffer); the
               CKE kernels K3, K11 (beside it torch.einsum of the stacked
               coefficients by the staged rows), K12 (and its bf16
@@ -103,14 +105,15 @@ last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
 --times OUT runs phases 1 and 2 and then times K3 and K13 (at production
 f32 and the shipped size in f64), K12 (at the shipped size,
 f32, f64 and bf16), the MPDATA step kernel (at production, f32, f64 and
-bf16: K6 and K7 one step, K8 four; K2 one and four steps, K9 four), the
+bf16: K6 and K7 one step, K8 four; K2 one and four steps, K9 four), K10
+(production f32 and f64, shipped f64), the
 masked kernel (K22/K23 one step, K24/K25 four, on the one-shard window at
 the shipped 48 slices and at production) and the DSS kernels (K14-K19 and
 their dist modes at production, K19 also shipped; and the production
 biharmonic_dss2d legs of phases 4 and 5 that run the rowchain kernels, in
 us/step; --kernels narrows to cke, mpdata or dss), and saves their outputs
 (of the DSS kernels, digests) to OUT; --against REF then holds them bitwise
-equal to those a run of another tree saved in REF, K2's and K9's within the
+equal to those a run of another tree saved in REF, K10's within the
 family gates (the bf16x3 forms of K15, K17, K17p and K19, redesigned on
 the tensor cores, are not held), and prints REF's times beside.  Run against an older tree's
 package, it measures that tree:
@@ -159,7 +162,8 @@ REDESIGNED = {"K14": (7, 1.6638), "K14w": (7, 3.8402), "K16": (7, 0.5580),
               "K20": (9, 0.7565), "K21": (9, 0.7535), "K22": (9, 0.7534),
               "K23": (9, 0.8306), "K24": (9, 3.2612), "K25": (9, 3.3596),
               "K3": (10, 0.3515), "K13": (10, 0.8552), "K15": (11, 0.4306),
-              "K17": (11, 0.4311), "K17p": (11, 0.4250), "K19": (11, 1.6471)}
+              "K17": (11, 0.4311), "K17p": (11, 0.4250), "K19": (11, 1.6471),
+              "K10": (12, 1.0110)}
 
 
 # the kernels whose launches run several steps; their rows also count the
@@ -181,6 +185,8 @@ def table_row(k: str, row: dict) -> str:
     if "ms_f64" in row:
         ms += f"; f64 {row['ms_f64']:.4f}"
         lib += f"; f64 {row['library_ms_f64']:.4f}"
+    if "shipped_ms" in row:  # a kernel whose path launches it at the shipped size
+        ms += f"; shipped f64 {row['shipped_ms']:.4f} (bound {row['shipped_bound_ms']:.4f})"
     return (f"| {k} | `{row['replaces'].removeprefix('cdk_tpu/kernels/')}` | {status} | "
             f"CUDA → `{row['source'].removeprefix('cdk_torch/')}` ({row['name']}) | {ms} | "
             f"{row['launches_shipped']} / {row['launches_production']}"
@@ -332,7 +338,7 @@ def phase_build():
     flag_names = {"step_kernel": ("x3", "sq"), "dss_ring_x3_kernel": ("sq",),
                   "cke_onehot_kernel": ("bf16",), "cke_rows_kernel": ("vec",),
                   "cke_lanegather_kernel": ("vec",),
-                  "mpdata_sweep_kernel": ("split", "hoist", "masked")}
+                  "mpdata_sweep_kernel": ("split", "hoist", "masked", "lanes")}
     int_names = {"mpdata_sweep_kernel": ("L",), "step_kernel": ("elems", "mode")}
     for m in re.finditer(r"Function properties for (\S+)\n\s+(\d+) bytes stack frame, "
                          r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
@@ -500,9 +506,10 @@ def phase_fused_and_staged_kernels(dev, card):
 
     rows = {}
 
-    def check(tag, what, gates, kernel, plain):
+    def check(tag, what, gates, kernel, plain, exact_f=False):
         """kernel() and plain() return a tensor (rel L2 against `gates[0]`)
-        or MPDATA's (f, flux) (rel L1 against the f and flux gates)."""
+        or MPDATA's (f, flux) (rel L1 against the f and flux gates; with
+        exact_f f bit for bit)."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
@@ -521,6 +528,8 @@ def phase_fused_and_staged_kernels(dev, card):
         if not all(e[0] < g and e[2] > 0 and bool(torch.isfinite(o).all())
                    for e, g, o in zip(errs, gates, outs)):
             fail(f"{tag} {what}: {[e[0] for e in errs]}")
+        if exact_f and not torch.equal(outs[0], refs[0]):
+            fail(f"{tag} {what}: f is not bit for bit its plain version's")
         return outs, dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms)
 
     gate = {"float32": 2e-5, "float64": 1e-13}
@@ -610,14 +619,27 @@ def phase_fused_and_staged_kernels(dev, card):
             if label == "production":
                 rows["K9"] = dict(row, steps_timed=1, **bound(
                     args + outs, mpdata_ops(cfg.nslices, cfg.nx, cfg.nzm, 1, True)))
+            # K10: f bit for bit its plain version's (the sweep rounds every
+            # operation as the plain version does); its path launches it at
+            # the shipped size in f64, whose time and bound its row carries
             xzs = tuple(lanes.to_xzs(t) for t in args)
             outs, row = check(
                 "K10", f"{shape} {dtype:8s} advect_lanes (x, z, s)",
                 mgates[dtype], lambda: lanes.advect_lanes(*xzs),
-                lambda: lanes.advect_lanes_plain(*xzs))
+                lambda: lanes.advect_lanes_plain(*xzs), exact_f=True)
+            here = bound(xzs + outs, mpdata_ops(cfg.nslices, cfg.nx, cfg.nzm, 1, False))
             if label == "production":
-                rows["K10"] = dict(row, **bound(
-                    xzs + outs, mpdata_ops(cfg.nslices, cfg.nx, cfg.nzm, 1, False)))
+                rows["K10"] = dict(rows.get("K10", {}), **row, **here)
+                f6, flux6 = staged.advect_fused(*args, 1)
+                torch.cuda.synchronize()
+                if not (torch.equal(outs[0], lanes.to_xzs(f6))
+                        and torch.equal(outs[1], lanes.to_xzs(flux6))):
+                    fail(f"K10 {shape} {dtype}: differs from K6 on the same data")
+                print(f"[3 K10=K6] {shape} {dtype}: K10 on (x, z, s) bitwise equal to K6 "
+                      f"on (s, x, z), f and flux")
+            elif dtype == "float64":
+                rows["K10"] = dict(rows.get("K10", {}), shipped_ms=row["ms"],
+                                   shipped_bound_ms=here["bound_ms"])
             del d, args, xzs
     return rows
 
@@ -625,15 +647,17 @@ def phase_fused_and_staged_kernels(dev, card):
 def phase_few_slices(dev, card):
     """The warps a slice of the MPDATA sweep at the shipped 48 slices (nx 32,
     nzm 57), f32 and f64: the hoisted form (K2, 1 and 4 steps), the staged
-    form (K6 one step, K8 four) and the masked form on the one-shard window
-    (K22 and K23 one step, K24 and K25 four), each at 1, 2, 4 and 8 warps a
-    slice and at the kernel's own choice, each timed in turn; f and flux
-    bitwise equal whatever the count."""
+    form (K6 one step, K8 four; K10 one step on the (x, z, s) layout) and the
+    masked form on the one-shard window (K22 and K23 one step, K24 and K25
+    four), each at 1, 2, 4 and 8 warps a slice and at the kernel's own
+    choice, each timed in turn; f and flux bitwise equal whatever the
+    count."""
     import torch
 
     from cdk_torch.core.config import MpdataConfig
     from cdk_torch.dist import mesh as dmesh
     from cdk_torch.dist import mpdata as dmp
+    from cdk_torch.kernels.mpdata import lanes
     from cdk_torch.kernels.mpdata import masked as mk
     from cdk_torch.kernels.mpdata import problem as mp
     from cdk_torch.kernels.mpdata import staged
@@ -643,13 +667,15 @@ def phase_few_slices(dev, card):
         cfg = MpdataConfig(dtype=dtype, device_init=True)
         d = mp.init_data(cfg, dev)
         args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+        xzs = tuple(lanes.to_xzs(t) for t in args)
         f_s, u_s, w_s, (rho, rhow, adz, _) = dmp.make_dist_step(
             cfg, dmesh.make_mesh(1, dev))[0](d)
         kw = dict(nx=cfg.nx, nzm=cfg.nzm)
         cases = [("K2 n=1", lambda w: advect_resident(*args, 1, warps=w)),
                  ("K2 n=4", lambda w: advect_resident(*args, 4, warps=w)),
                  ("K6 n=1", lambda w: staged.advect_fused(*args, 1, warps=w)),
-                 ("K8 n=4", lambda w: staged.advect_staged_resident(*args, 4, warps=w))]
+                 ("K8 n=4", lambda w: staged.advect_staged_resident(*args, 4, warps=w)),
+                 ("K10", lambda w: lanes.advect_lanes(*xzs, warps=w))]
         for n in (1, 4):
             h = 3 * n
             lh, rh = (x[0] for x in dmesh.exchange_strips(f_s, h))
@@ -680,7 +706,7 @@ def phase_few_slices(dev, card):
                   f"across the counts={same} [{card}]")
             if not same:
                 fail(f"{tag} {dtype} at 48 slices: the warps a slice change the output")
-        del d, args, f_s, u_s, w_s
+        del d, args, xzs, f_s, u_s, w_s
 
 
 def l2_read_rate(dev) -> float:
@@ -1777,22 +1803,22 @@ def dss2d_leg_times(dev, times):
 
 
 def phase_times(dev, card, out: str, against: str | None, kernels: str) -> None:
-    """--times: K3, K13, K12, the MPDATA step kernel and the masked kernel
-    (`kernels` "cke", "mpdata" or "all"), and the DSS kernels ("dss" or
-    "all": dss_times), timed in the tree whose cdk_torch this imports (K3 and
-    K13 at production
-    f32 and the shipped size in f64; K12 at the shipped size in f32,
-    f64 and bf16; the staged form at production in f32, f64 and bf16, K6
-    and K7 one step and K8 four; the hoisted K2 one step, K2 and K9 four;
-    K22 and K23 one step, K24 and K25 four, on the one-shard window at the
-    shipped 48 slices, f32 and f64, and at production f32); their outputs
-    saved to `out`, and with `against` K3's, K13's, K12's (also with
-    duplicate slots), K6-K8's and K20-K25's held bitwise equal to those
-    saved there, and K2's
-    and K9's within the family gates (rel L1 on f 1e-6 / 1e-13, on flux
-    1e-5 / 1e-13 at f32 / f64: the sweep rounds every operation as the plain
-    version, where the block-per-slice kernel contracted into FMAs).  With
-    `against` each time is printed beside the one saved there."""
+    """--times: K3, K13, K12, the MPDATA step kernel, K10 and the masked
+    kernel (`kernels` "cke", "mpdata" or "all"), and the DSS kernels ("dss"
+    or "all": dss_times), timed in the tree whose cdk_torch this imports (K3
+    and K13 at production f32 and the shipped size in f64; K12 at the
+    shipped size in f32, f64 and bf16; the staged form at production in
+    f32, f64 and bf16, K6 and K7 one step and K8 four; the hoisted K2 one
+    step, K2 and K9 four; K10 at production in f32 and f64 and at the
+    shipped size in f64; K22 and K23 one step, K24 and K25 four, on the
+    one-shard window at the shipped 48 slices, f32 and f64, and at
+    production f32); their outputs saved to `out`, and with `against` K3's,
+    K13's, K12's (also with duplicate slots), K2's and K6-K9's and
+    K20-K25's held bitwise equal to those saved there, and K10's within the
+    family gates (rel L1 on f 1e-6 / 1e-13, on flux 1e-5 / 1e-13 at f32 /
+    f64: the sweep rounds every operation as the plain version, where the
+    earlier four-launch K10 contracted into FMAs).  With `against`
+    each time is printed beside the one saved there."""
     import torch
 
     from cdk_torch.core.config import CkeConfig, MpdataConfig
@@ -1803,6 +1829,7 @@ def phase_times(dev, card, out: str, against: str | None, kernels: str) -> None:
     from cdk_torch.kernels.cke.onehot import cke_onehot
     from cdk_torch.kernels.cke.reference import coef3_of, fsign1
     from cdk_torch.kernels.cke.rows import cke_rows
+    from cdk_torch.kernels.mpdata import lanes
     from cdk_torch.kernels.mpdata import masked as mk
     from cdk_torch.kernels.mpdata import problem as mp
     from cdk_torch.kernels.mpdata import staged
@@ -1858,6 +1885,16 @@ def phase_times(dev, card, out: str, against: str | None, kernels: str) -> None:
             outs[key] = wrapper(*a, n)
             times[key] = timed_ms(lambda: wrapper(*a, n), REPS)
         del d, a
+    for label, nslices, dtype in (("production", 8192, "float32"),
+                                  ("production", 8192, "float64"),
+                                  ("shipped", 48, "float64")) if mp_sizes else ():
+        cfg = MpdataConfig(nslices=nslices, dtype=dtype, device_init=True)
+        d = mp.init_data(cfg, dev)
+        xzs = tuple(lanes.to_xzs(getattr(d, n)) for n in lanes.FIELDS)
+        key = f"K10 {label} {dtype} n=1"
+        outs[key] = lanes.advect_lanes(*xzs)
+        times[key] = timed_ms(lambda: lanes.advect_lanes(*xzs), REPS)
+        del d, xzs
     for label, nslices, dtype in (("shipped", 48, "float32"), ("shipped", 48, "float64"),
                                   ("production", 8192, "float32")) if mp_sizes else ():
         cfg = MpdataConfig(nslices=nslices, dtype=dtype, device_init=True)
@@ -1917,7 +1954,7 @@ def phase_times(dev, card, out: str, against: str | None, kernels: str) -> None:
             continue
         diff = max(float((x.double() - y.double()).abs().max())
                    for x, y in zip(got, ref[k]))
-        gated = k.split()[0] in ("K2", "K9")
+        gated = k.split()[0] == "K10"
         ok = same
         if gated:  # f then flux, within the family gates
             gates = (1e-13, 1e-13) if "float64" in k else (1e-6, 1e-5)
@@ -1939,11 +1976,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--times", metavar="OUT", help="phases 1-2, then time K3, K13, "
-                    "K12, the MPDATA step kernel, the masked kernel and the DSS kernels "
-                    "and save their outputs to OUT")
+                    "K12, the MPDATA step kernel, K10, the masked kernel and the DSS "
+                    "kernels and save their outputs to OUT")
     ap.add_argument("--against", metavar="REF", help="with --times: hold those "
-                    "outputs to the ones saved in REF (bitwise; K2 and K9 within "
-                    "the family gates) and print REF's times beside")
+                    "outputs to the ones saved in REF (bitwise; K10 within the "
+                    "family gates) and print REF's times beside")
     ap.add_argument("--kernels", choices=("all", "cke", "mpdata", "dss"), default="all",
                     help="with --times: the kernels to time")
     opts = ap.parse_args()
@@ -2126,14 +2163,18 @@ def main() -> int:
         print(f"[7 table] {table_row(k, row)}")
     # the redesign queue's order: device time lost against the bound by the
     # launches made at the size each kernel's ms was taken at (the shipped
-    # size for K11 and K12), a multi-step kernel's by the steps they ran
+    # size for K11 and K12; K10's launches are all shipped f64 ones, charged
+    # at its shipped f64 ms and bound), a multi-step kernel's by the steps
+    # they ran
     lost = {}
     for k, row in zip(order, kernels):
-        size = "shipped" if k in ("K11", "K12") else "production"
+        size = "shipped" if k in ("K10", "K11", "K12") else "production"
         units = row.get("steps_production") if size == "production" else None
         per = row.get("steps_timed", 1) if units is not None else 1
         units = row[f"launches_{size}"] if units is None else units
-        lost[k] = (units, units * (row["ms"] - row["bound_ms"]) / per)
+        ms, bound_ms = ((row["shipped_ms"], row["shipped_bound_ms"]) if k == "K10"
+                        else (row["ms"], row["bound_ms"]))
+        lost[k] = (units, units * (ms - bound_ms) / per)
     # the queue's rule: a kernel redesigned once is not taken again, and one
     # at half its bound or better is left alone
     for k, (units, ms) in sorted(lost.items(), key=lambda kv: -kv[1][1]):

@@ -643,25 +643,74 @@ def test_staged_kernel_refuses_oversized_slice(cuda):
                                        d.flux, 1)
 
 
-@pytest.mark.parametrize("geom", [(4, 8, 12), (37, 5, 9), (64, 32, 58)])
+@pytest.mark.parametrize("geom", [(1, 8, 12), (4, 8, 12), (37, 5, 9), (48, 32, 58),
+                                  (64, 32, 58), (3, 7, 100), (2, 5, 200)])
 def test_lanes_kernel_matches_plain(cuda, geom):
     """K10 against its plain version in the (x, z, s) layout, f32 and f64,
-    one step and three chained (slice counts below, off and on a warp)."""
+    one step and three chained, one launch a call: f bit for bit (every
+    operation rounds as the plain version's), the flux within the gates
+    (its column sums run in x order); one slice, slice counts off and on
+    the block's 8, the shipped 48 (split among warps) and nzm 99 and 199
+    (4 and 8 levels a lane)."""
     s, nx, nz = geom
     cfg = with_overrides(MpdataConfig(), nslices=s, nx=nx, nz=nz)
-    for dtype, gate_f, gate_flux in ((torch.float32, 1e-6, 1e-5),
-                                     (torch.float64, 1e-13, 1e-13)):
+    for dtype, gate_flux in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
         d = mp.init_data(cfg).to(cuda, dtype)
         xzs = [mlanes.to_xzs(getattr(d, n)) for n in mlanes.FIELDS]
         k, p = xzs[0], xzs[0]
         fk, fp = xzs[6], xzs[6]
-        for _ in range(3):
+        for n in range(3):
             before = mlanes.advect_lanes.launches
             k, fk = mlanes.advect_lanes(k, *xzs[1:6], fk)
             torch.cuda.synchronize()
             assert mlanes.advect_lanes.launches == before + 1
             p, fp = mlanes.advect_lanes_plain(p, *xzs[1:6], fp)
-            assert rel_l1(k, p) < gate_f and rel_l1(fk, fp) < gate_flux, dtype
+            assert torch.equal(k, p), (dtype, n)
+            assert rel_l1(fk, fp) < gate_flux, (dtype, n)
+
+
+@pytest.mark.parametrize("geom", [(5, 8, 12), (48, 32, 58), (1030, 32, 58)])
+def test_lanes_kernel_equals_the_staged_kernel(cuda, geom):
+    """K10 on the (x, z, s) layout and K6 on (s, x, z) run one stage chain:
+    f and flux bit for bit the same through to_xzs, f32 and f64 (48
+    slices split among warps in both)."""
+    s, nx, nz = geom
+    cfg = with_overrides(MpdataConfig(), nslices=s, nx=nx, nz=nz)
+    for dtype in (torch.float32, torch.float64):
+        d = mp.init_data(cfg).to(cuda, dtype)
+        args = (d.f, d.u, d.w, d.rho, d.rhow, d.adz, d.flux)
+        f6, flux6 = mstaged.advect_fused(*args, 1)
+        f10, flux10 = mlanes.advect_lanes(*(mlanes.to_xzs(t) for t in args))
+        torch.cuda.synchronize()
+        assert torch.equal(f10, mlanes.to_xzs(f6)), dtype
+        assert torch.equal(flux10, mlanes.to_xzs(flux6)), dtype
+
+
+@pytest.mark.parametrize("warps", [None, 1, 2, 4, 8])
+def test_lanes_kernel_split_slices_match_plain(cuda, warps):
+    """K10 at the shipped 48 slices, a slice split among warps (None: the
+    kernel's own choice; 8 warps a slice leave one slice a block): f bit
+    for bit the plain version's, and f and flux bit for bit one warp a
+    slice."""
+    d = mp.init_data(with_overrides(MpdataConfig(), nslices=48, nx=32, nz=58))
+    for dtype, gate_flux in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
+        xzs = [mlanes.to_xzs(getattr(d, n)).to(cuda, dtype) for n in mlanes.FIELDS]
+        f_k, flux_k = mlanes.advect_lanes(*xzs, warps=warps)
+        whole = mlanes.advect_lanes(*xzs, warps=1)
+        torch.cuda.synchronize()
+        f_p, flux_p = mlanes.advect_lanes_plain(*xzs)
+        assert torch.equal(f_k, f_p), dtype
+        assert rel_l1(flux_k, flux_p) < gate_flux, dtype
+        assert torch.equal(f_k, whole[0]) and torch.equal(flux_k, whole[1])
+
+
+def test_lanes_kernel_refuses_oversized_slice(cuda):
+    """K10 refuses a slice of more levels than the sweep's lanes hold (nzm
+    300), as the other MPDATA step kernels do."""
+    d = mp.init_data(with_overrides(MpdataConfig(), nslices=2, nx=8, nz=301)).to(cuda)
+    xzs = [mlanes.to_xzs(getattr(d, n)) for n in mlanes.FIELDS]
+    with pytest.raises(UnsupportedConfigError, match="levels"):
+        mlanes.advect_lanes(*xzs)
 
 
 @pytest.mark.parametrize("kernel,cfg,names,wrappers", [

@@ -54,6 +54,135 @@ def _min3(a, b, c):
     return torch.minimum(torch.minimum(a, b), c)
 
 
+class Chain:
+    """The sweep's stage chain over one slice chunk: step(p, f, u, w) takes
+    iteration p's loaded rows (f row p, or None past a masked window's end;
+    u and w row p of the collocated grid) and returns the rows the kernel
+    stores and sums there: f row p, www[p], f1[p-1], www3[p-2] and the final
+    f[p-3].  Rows are (S, nzm) tensors; masked = (gi0, nx, rows) or None."""
+
+    def __init__(self, rho, rhow, adz, *, hoist, masked=None):
+        nzm = rho.shape[1]
+        self.hoist, self.masked = hoist, masked is not None
+        self.gi0, self.nx, self.rows = masked if masked else (-2, None, None)
+        span = kspan(nzm, rho)
+        self.rho, self.irho, self.iadz = rho, 1.0 / rho, 1.0 / adz
+        self.dd = 2.0 / span / adz
+        self.irhow = 1.0 / (rhow[:, :nzm] * adz)
+        zero = rho.new_zeros(rho.shape)
+        self.one = torch.ones_like(zero)
+        self.state = (zero,) * 30
+
+    def step(self, p, f_p, u_p, w_p):
+        hoist, masked, rows, nx = self.hoist, self.masked, self.rows, self.nx
+        rho, irho, iadz, dd, irhow, one = (self.rho, self.irho, self.iadz, self.dd,
+                                           self.irhow, self.one)
+
+        def gi_in(x, a, b):
+            return a <= self.gi0 + x <= b
+
+        (fA, fB, fC, fkbB, u1, u2, u3, ukb3, w1, w2, w3, wkc3, a1, b1, b2, g1, g2, g3,
+         gkb1, gkb2, gkb3, gkc1, gkc2, mxfP, mnfP, U2a, MXr, MNr, U3a, W3a) = self.state
+        fC, fB = fB, fA
+        fA = f_p if f_p is not None else fB  # f[X] := f[X-1]
+        u3, u2, u1 = u2, u1, u_p
+        w3, w2, w1 = w2, w1, w_p
+        if masked and p == rows:
+            u1 = u2                          # u[X] := u[X-1]
+        if masked and p == 0:
+            fB, w2 = fA, w1                  # f[-1], w[-1] := row 0
+        # -- stage 2: uuu[p], www[p]
+        fkbA = _kb(fA)
+        b3, a2, b2 = b2, a1, b1
+        a1 = _pp(u1) * fB - _pn(u1) * fA
+        b1 = _pp(w1) * fkbA - _pn(w1) * fA
+        if masked and p == rows:
+            a1 = a2                          # uuu[X] := uuu[X-1]
+        # -- stage 3: f1[p-1]
+        g3, g2 = g2, g1
+        g1 = fB - ((a1 - a2) + (_up0(b2) - b2) * iadz) * irho
+        if masked and not gi_in(p - 1, -1, nx + 2):
+            g1 = fB
+        if masked and p - 1 == rows:
+            g1 = g2                          # f1[X] := f1[X-1]
+        gkb3, gkb2, gkb1 = gkb2, gkb1, _kb(g1)
+        gkc2, gkc1 = gkc1, _kc(g1)
+        if masked and p - 1 == 0:
+            g2, gkb2, gkc2 = g1, gkb1, gkc1  # f1[-1] := f1[0]
+        # -- stage 1: f's extrema at row p-1
+        fkcB = _kc(fB)
+        mxfN = torch.maximum(torch.maximum(torch.maximum(fC, fA),
+                                           torch.maximum(fkbB, fkcB)), fB)
+        mnfN = torch.minimum(torch.minimum(torch.minimum(fC, fA),
+                                           torch.minimum(fkbB, fkcB)), fB)
+        # -- stage 4: uuu2[p-1]
+        wkc2 = _kc(w2)
+        U2b = U2a
+        coef = (torch.abs(u2) - (u2 * u2) * irho) * 0.5
+        wsum = ((w3 + wkc3) + w2) + wkc2
+        if hoist:
+            across = (((0.03125 * u2) * wsum) * dd) * irho
+            U2a = coef * (g1 - g2) - across * ((gkc2 + gkc1) - (gkb2 + gkb1))
+        else:
+            dz = dd * (((gkc2 + gkc1) - gkb2) - gkb1)
+            U2a = coef * (g1 - g2) - (((0.03125 * u2) * wsum) * dz) * irho
+        if masked and not gi_in(p - 1, 0, nx + 2):
+            U2a = a2
+        if masked and p - 1 == rows:
+            U2a = U2b                        # uuu2[X] := uuu2[X-1]
+        # www2[p-2], zero at k = 0
+        ukb2 = _kb(u2)
+        coef = (torch.abs(w3) - (w3 * w3) * irhow) * 0.5
+        usum = ((ukb3 + u3) + u2) + ukb2
+        if hoist:
+            across = ((0.03125 * w3) * usum) * irho
+            W2 = coef * (g2 - gkb2) - across * ((gkb1 - gkb3) + (g1 - g3))
+        else:
+            dx = ((gkb1 + g1) - gkb3) - g3
+            W2 = coef * (g2 - gkb2) - (((0.03125 * w3) * usum) * dx) * irho
+        if masked and not gi_in(p - 2, 0, nx + 1):
+            W2 = b3
+        W2 = torch.cat([torch.zeros_like(W2[:, :1]), W2[:, 1:]], 1)
+        # -- stage 5a/5b: the ratios at row p-2
+        W2kc = _kc(W2)
+        MXrP, MNrP = MXr, MNr
+        mx = torch.maximum(torch.maximum(torch.maximum(g3, g1),
+                                         torch.maximum(gkb2, gkc2)),
+                           torch.maximum(g2, mxfP))
+        mn = torch.minimum(torch.minimum(torch.minimum(g3, g1),
+                                         torch.minimum(gkb2, gkc2)),
+                           torch.minimum(g2, mnfP))
+        MXr = rho * (mx - g2) / (((_pn(U2a) + _pp(U2b))
+                                  + iadz * (_pn(W2kc) + _pp(W2))) + EPS)
+        MNr = rho * (g2 - mn) / (((_pp(U2a) + _pn(U2b))
+                                  + iadz * (_pp(W2kc) + _pn(W2))) + EPS)
+        if masked and p - 2 == 0:
+            MXrP, MNrP = MXr, MNr            # ratios' row -1 := row 0
+        # -- stage 5c: uuu3[p-2], www3[p-2]
+        U3b, W3b = U3a, W3a
+        U3a = (_pp(U2b) * _min3(one, MXr, MNrP)
+               - _pn(U2b) * _min3(one, MXrP, MNr))
+        W3 = (_pp(W2) * _min3(one, MXr, _kb(MNr))
+              - _pn(W2) * _min3(one, _kb(MXr), MNr))
+        W3a = W3
+        if masked and not gi_in(p - 2, 1, nx + 1):
+            U3a = U2b
+        if masked and not gi_in(p - 2, 1, nx):
+            W3a = W2
+        if masked and p - 2 == rows:
+            U3a = U3b                        # uuu3[X] := uuu3[X-1]
+        # -- stage 6: the final f at row p-3
+        fN = torch.clamp_min(
+            g3 - ((U3a - U3b) + (_up0(W3b) - W3b) * iadz) * irho, 0.0)
+        if masked and not gi_in(p - 3, 1, nx):
+            fN = g3
+        mxfP, mnfP, fkbB, wkc3, ukb3 = mxfN, mnfN, fkbA, wkc2, ukb2
+        self.state = (fA, fB, fC, fkbB, u1, u2, u3, ukb3, w1, w2, w3, wkc3, a1, b1, b2,
+                      g1, g2, g3, gkb1, gkb2, gkb3, gkc1, gkc2, mxfP, mnfP, U2a, MXr,
+                      MNr, U3a, W3a)
+        return fA, b1, g1, W3, fN
+
+
 def sweep(f, u, w, rho, rhow, adz, nsteps, *, hoist, masked=None, chunks=1,
           strips=None):
     """The kernel's schedule.  Unmasked: f (S, nx+6, nzm), u (S, nx+5, nzm),
@@ -72,10 +201,6 @@ def sweep(f, u, w, rho, rhow, adz, nsteps, *, hoist, masked=None, chunks=1,
         uoff, u_rows, w_rows = 1, nx + 5, nx + 4
     halo = 0 if strips is None else strips[0].shape[1]
     window = f if strips is None else torch.cat([strips[0], f, strips[1]], 1)
-    span = kspan(nzm, rho)
-    irho, iadz = 1.0 / rho, 1.0 / adz
-    dd = 2.0 / span / adz
-    irhow = 1.0 / (rhow[:, :nzm] * adz)
 
     def gi_in(x, a, b):
         return a <= gi0 + x <= b
@@ -84,7 +209,6 @@ def sweep(f, u, w, rho, rhow, adz, nsteps, *, hoist, masked=None, chunks=1,
         return lo <= x < hi and gi_in(x, 1, nx)
 
     zero = rho.new_zeros((S, nzm))
-    one = torch.ones_like(zero)
     # the flux rows, x in [flux_lo, flux_lo + nf) (a split slice's shared rows)
     flux_lo = max(lo, 1 - gi0)
     nf = max(0, min(hi, nx + 1 - gi0) - flux_lo)
@@ -126,106 +250,12 @@ def sweep(f, u, w, rho, rhow, adz, nsteps, *, hoist, masked=None, chunks=1,
                 j = r - uoff
                 return w[:, j, :nzm] if 0 <= j < w_rows else zero
 
-            fA = fB = fC = fkbB = u1 = u2 = u3 = ukb3 = zero
-            w1 = w2 = w3 = wkc3 = a1 = b1 = b2 = g1 = g2 = g3 = zero
-            gkb1 = gkb2 = gkb3 = gkc1 = gkc2 = zero
-            mxfP = mnfP = U2a = MXr = MNr = U3a = W3a = zero
+            chain = Chain(rho, rhow, adz, hoist=hoist,
+                          masked=(gi0, nx, rows) if masked else None)
             fl1 = fl2 = zero
             for p in range(p0, p1 + 1):
-                fC, fB = fB, fA
-                fA = load_f(p) if p < rows else fB  # f[X] := f[X-1]
-                u3, u2, u1 = u2, u1, load_u(p)
-                w3, w2, w1 = w2, w1, load_w(p)
-                if masked and p == rows:
-                    u1 = u2                          # u[X] := u[X-1]
-                if masked and p == 0:
-                    fB, w2 = fA, w1                  # f[-1], w[-1] := row 0
-                # -- stage 2: uuu[p], www[p]
-                fkbA = _kb(fA)
-                b3, a2, b2 = b2, a1, b1
-                a1 = _pp(u1) * fB - _pn(u1) * fA
-                b1 = _pp(w1) * fkbA - _pn(w1) * fA
-                if masked and p == rows:
-                    a1 = a2                          # uuu[X] := uuu[X-1]
-                # -- stage 3: f1[p-1]
-                g3, g2 = g2, g1
-                g1 = fB - ((a1 - a2) + (_up0(b2) - b2) * iadz) * irho
-                if masked and not gi_in(p - 1, -1, nx + 2):
-                    g1 = fB
-                if masked and p - 1 == rows:
-                    g1 = g2                          # f1[X] := f1[X-1]
-                gkb3, gkb2, gkb1 = gkb2, gkb1, _kb(g1)
-                gkc2, gkc1 = gkc1, _kc(g1)
-                if masked and p - 1 == 0:
-                    g2, gkb2, gkc2 = g1, gkb1, gkc1  # f1[-1] := f1[0]
-                # -- stage 1: f's extrema at row p-1
-                fkcB = _kc(fB)
-                mxfN = torch.maximum(torch.maximum(torch.maximum(fC, fA),
-                                                   torch.maximum(fkbB, fkcB)), fB)
-                mnfN = torch.minimum(torch.minimum(torch.minimum(fC, fA),
-                                                   torch.minimum(fkbB, fkcB)), fB)
-                # -- stage 4: uuu2[p-1]
-                wkc2 = _kc(w2)
-                U2b = U2a
-                coef = (torch.abs(u2) - (u2 * u2) * irho) * 0.5
-                wsum = ((w3 + wkc3) + w2) + wkc2
-                if hoist:
-                    across = (((0.03125 * u2) * wsum) * dd) * irho
-                    U2a = coef * (g1 - g2) - across * ((gkc2 + gkc1) - (gkb2 + gkb1))
-                else:
-                    dz = dd * (((gkc2 + gkc1) - gkb2) - gkb1)
-                    U2a = coef * (g1 - g2) - (((0.03125 * u2) * wsum) * dz) * irho
-                if masked and not gi_in(p - 1, 0, nx + 2):
-                    U2a = a2
-                if masked and p - 1 == rows:
-                    U2a = U2b                        # uuu2[X] := uuu2[X-1]
-                # www2[p-2], zero at k = 0
-                ukb2 = _kb(u2)
-                coef = (torch.abs(w3) - (w3 * w3) * irhow) * 0.5
-                usum = ((ukb3 + u3) + u2) + ukb2
-                if hoist:
-                    across = ((0.03125 * w3) * usum) * irho
-                    W2 = coef * (g2 - gkb2) - across * ((gkb1 - gkb3) + (g1 - g3))
-                else:
-                    dx = ((gkb1 + g1) - gkb3) - g3
-                    W2 = coef * (g2 - gkb2) - (((0.03125 * w3) * usum) * dx) * irho
-                if masked and not gi_in(p - 2, 0, nx + 1):
-                    W2 = b3
-                W2 = torch.cat([torch.zeros_like(W2[:, :1]), W2[:, 1:]], 1)
-                # -- stage 5a/5b: the ratios at row p-2
-                W2kc = _kc(W2)
-                MXrP, MNrP = MXr, MNr
-                mx = torch.maximum(torch.maximum(torch.maximum(g3, g1),
-                                                 torch.maximum(gkb2, gkc2)),
-                                   torch.maximum(g2, mxfP))
-                mn = torch.minimum(torch.minimum(torch.minimum(g3, g1),
-                                                 torch.minimum(gkb2, gkc2)),
-                                   torch.minimum(g2, mnfP))
-                MXr = rho * (mx - g2) / (((_pn(U2a) + _pp(U2b))
-                                          + iadz * (_pn(W2kc) + _pp(W2))) + EPS)
-                MNr = rho * (g2 - mn) / (((_pp(U2a) + _pn(U2b))
-                                          + iadz * (_pp(W2kc) + _pn(W2))) + EPS)
-                if masked and p - 2 == 0:
-                    MXrP, MNrP = MXr, MNr            # ratios' row -1 := row 0
-                # -- stage 5c: uuu3[p-2], www3[p-2]
-                U3b, W3b = U3a, W3a
-                U3a = (_pp(U2b) * _min3(one, MXr, MNrP)
-                       - _pn(U2b) * _min3(one, MXrP, MNr))
-                W3 = (_pp(W2) * _min3(one, MXr, _kb(MNr))
-                      - _pn(W2) * _min3(one, _kb(MXr), MNr))
-                W3a = W3
-                if masked and not gi_in(p - 2, 1, nx + 1):
-                    U3a = U2b
-                if masked and not gi_in(p - 2, 1, nx):
-                    W3a = W2
-                if masked and p - 2 == rows:
-                    U3a = U3b                        # uuu3[X] := uuu3[X-1]
-                # -- stage 6: the final f at row p-3
-                fN = torch.clamp_min(
-                    g3 - ((U3a - U3b) + (_up0(W3b) - W3b) * iadz) * irho, 0.0)
-                if masked and not gi_in(p - 3, 1, nx):
-                    fN = g3
-                mxfP, mnfP, fkbB, wkc3, ukb3 = mxfN, mnfN, fkbA, wkc2, ukb2
+                fA, b1, g1, W3, fN = chain.step(
+                    p, load_f(p) if p < rows else None, load_u(p), load_w(p))
                 # flux: www[p] and www3[p-2] over the owned flux rows
                 for r, val, slot in ((p, b1, 0), (p - 2, W3, 1)):
                     if fmask(r) and own_lo <= r < own_hi:
