@@ -1,0 +1,4 @@
+"""glue_us_per_step.homme: `glue_us_per_step` of the HOMME cells, read alike;
+it moves `step_us.homme`, their step time."""
+
+from cdkbench.metrics.glue_us_per_step import read  # noqa: F401
