@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from cdk_torch.core.trace import span
 from cdk_torch.dist import mesh as meshmod
 from cdk_torch.dist.mesh import Mesh, Mesh2d
 from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
@@ -310,15 +311,18 @@ def ring_rows(x: torch.Tensor, ey: int, h: int) -> torch.Tensor:
 
 
 def _bridge_in(L, q_s, exl, ey, precision):
-    return torch.stack([rc.rowchain_bridge_in(L[p], q_s[p], exl, ey, precision)
-                        for p in range(q_s.shape[0])])
+    outs = [rc.rowchain_bridge_in(L[p], q_s[p], exl, ey, precision)
+            for p in range(q_s.shape[0])]
+    with span("cdk.dist.gather"):
+        return torch.stack(outs)
 
 
 def _bridge_out(L, w, t, exl, ey, precision):
     tp = ring_rows(t, ey, 1)
-    return torch.stack([rc.rowchain_bridge_out_padded(L[p], w[p], tp[p], exl,
-                                                      ey, precision)
-                        for p in range(t.shape[0])])
+    outs = [rc.rowchain_bridge_out_padded(L[p], w[p], tp[p], exl, ey, precision)
+            for p in range(t.shape[0])]
+    with span("cdk.dist.gather"):
+        return torch.stack(outs)
 
 
 def make_dist_loop_dss2d_rowchain(cfg, mesh: Mesh, overlap: bool = False):

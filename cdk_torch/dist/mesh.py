@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from cdk_torch.core.platform import resolve_device
+from cdk_torch.core.trace import span
 
 
 @dataclass(frozen=True)
@@ -53,16 +54,18 @@ def shard_x(a: torch.Tensor, mesh: Mesh, chunk: int) -> torch.Tensor:
     pad = mesh.size * chunk - x
     if pad < 0:
         raise ValueError(f"{x} columns do not fit {mesh.size} x {chunk}")
-    a = torch.nn.functional.pad(a, (0, 0, 0, pad))
-    return (a.reshape(s, mesh.size, chunk, *a.shape[2:]).transpose(0, 1)
-            .contiguous().to(mesh.device))
+    with span("cdk.layout"):
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        return (a.reshape(s, mesh.size, chunk, *a.shape[2:]).transpose(0, 1)
+                .contiguous().to(mesh.device))
 
 
 def gather_x(a: torch.Tensor) -> torch.Tensor:
     """(P, S, chunk, ·) -> (S, P·chunk, ·), the counterpart of
     `to_host_global` (the tensor stays on its device)."""
     p, s, chunk = a.shape[:3]
-    return a.transpose(0, 1).reshape(s, p * chunk, *a.shape[3:])
+    with span("cdk.layout"):
+        return a.transpose(0, 1).reshape(s, p * chunk, *a.shape[3:])
 
 
 def exchange_strips(x: torch.Tensor, h: int, out=None):
@@ -74,18 +77,20 @@ def exchange_strips(x: torch.Tensor, h: int, out=None):
     zeros stay), so a loop allocates its strips once."""
     if x.shape[2] < h:
         raise ValueError(f"chunk {x.shape[2]} < halo {h}")
-    if out is None:
-        out = (torch.zeros_like(x[:, :, :h]), torch.zeros_like(x[:, :, :h]))
-    left, right = out
-    left[1:] = x[:-1, :, -h:]
-    right[:-1] = x[1:, :, :h]
-    return left, right
+    with span("cdk.dist.exchange"):
+        if out is None:
+            out = (torch.zeros_like(x[:, :, :h]), torch.zeros_like(x[:, :, :h]))
+        left, right = out
+        left[1:] = x[:-1, :, -h:]
+        right[:-1] = x[1:, :, :h]
+        return left, right
 
 
 def exchange(x: torch.Tensor, h: int) -> torch.Tensor:
     """x extended by h neighbour columns on each side: (P, S, chunk + 2h, ·)."""
-    left, right = exchange_strips(x, h)
-    return torch.cat([left, x, right], dim=2)
+    with span("cdk.dist.exchange"):
+        left, right = exchange_strips(x, h)
+        return torch.cat([left, x, right], dim=2)
 
 
 def ring_strips(x: torch.Tensor, h: int, shard_dim: int = 0, dim: int = 1,
@@ -100,22 +105,24 @@ def ring_strips(x: torch.Tensor, h: int, shard_dim: int = 0, dim: int = 1,
     if n < h:
         raise ValueError(f"{n} entries per shard < halo {h}")
     tail, head = x.narrow(dim, n - h, h), x.narrow(dim, 0, h)
-    if out is None:
-        out = (x.new_empty(tail.shape), x.new_empty(head.shape))
-    left, right = out
-    # left[p] = tail[p-1], right[p] = head[p+1], wrapping over the P shards
-    left.narrow(shard_dim, 1, P - 1).copy_(tail.narrow(shard_dim, 0, P - 1))
-    left.narrow(shard_dim, 0, 1).copy_(tail.narrow(shard_dim, P - 1, 1))
-    right.narrow(shard_dim, 0, P - 1).copy_(head.narrow(shard_dim, 1, P - 1))
-    right.narrow(shard_dim, P - 1, 1).copy_(head.narrow(shard_dim, 0, 1))
-    return left, right
+    with span("cdk.dist.exchange"):
+        if out is None:
+            out = (x.new_empty(tail.shape), x.new_empty(head.shape))
+        left, right = out
+        # left[p] = tail[p-1], right[p] = head[p+1], wrapping over the P shards
+        left.narrow(shard_dim, 1, P - 1).copy_(tail.narrow(shard_dim, 0, P - 1))
+        left.narrow(shard_dim, 0, 1).copy_(tail.narrow(shard_dim, P - 1, 1))
+        right.narrow(shard_dim, 0, P - 1).copy_(head.narrow(shard_dim, 1, P - 1))
+        right.narrow(shard_dim, P - 1, 1).copy_(head.narrow(shard_dim, 0, 1))
+        return left, right
 
 
 def ring_exchange(x: torch.Tensor, h: int, shard_dim: int = 0,
                   dim: int = 1) -> torch.Tensor:
     """x extended by h periodic neighbour entries on each side of axis dim."""
-    left, right = ring_strips(x, h, shard_dim, dim)
-    return torch.cat([left, x, right], dim=dim)
+    with span("cdk.dist.exchange"):
+        left, right = ring_strips(x, h, shard_dim, dim)
+        return torch.cat([left, x, right], dim=dim)
 
 
 @dataclass(frozen=True)

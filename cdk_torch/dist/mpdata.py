@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from cdk_torch.core.trace import span
 from cdk_torch.dist import mesh as meshmod
 from cdk_torch.dist.mesh import Mesh
 from cdk_torch.kernels.mpdata import masked
@@ -199,8 +200,10 @@ def make_dist_step_overlap(cfg, mesh: Mesh, halo: int = HALO,
                                    f_int[:, depth:chunk - depth],
                                    fr[:, need - depth:need]], dim=1))
             parts.append(flux_int + flux_l + flux_r)
-        flux = meshmod.psum(torch.stack(parts))
-        return torch.stack(outs), _flux_out(flux, flux_in, nzm)
+        with span("cdk.dist.gather"):
+            flux = meshmod.psum(torch.stack(parts))
+            f_s = torch.stack(outs)
+        return f_s, _flux_out(flux, flux_in, nzm)
 
     return step
 
@@ -279,8 +282,9 @@ def _run_shards(mesh: Mesh, launch):
     """launch(p) -> (f_out, flux partial) for each shard p, in order; ->
     (f stacked over the shards, the partials summed)."""
     outs = [launch(p) for p in range(mesh.size)]
-    return (torch.stack([o[0] for o in outs]),
-            meshmod.psum(torch.stack([o[1] for o in outs])))
+    with span("cdk.dist.gather"):
+        return (torch.stack([o[0] for o in outs]),
+                meshmod.psum(torch.stack([o[1] for o in outs])))
 
 
 def _make_dist_loop_hoisted(cfg, mesh: Mesh, halo: int, kernel: str | None):

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import span
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
@@ -43,9 +44,11 @@ def dss_weights(spheremp: torch.Tensor) -> torch.Tensor:
     points, 1/(spheremp_e + spheremp_neighbor) on the shared j=0 / j=np-1
     columns of the periodic element ring."""
     sp = spheremp
-    m_r = sp[..., -1] + torch.roll(sp, -1, 0)[..., 0]
-    m_l = sp[..., 0] + torch.roll(sp, 1, 0)[..., -1]
-    return 1.0 / torch.cat([m_l[..., None], sp[..., 1:-1], m_r[..., None]], -1)
+    with span("cdk.prepare"):
+        m_r = sp[..., -1] + torch.roll(sp, -1, 0)[..., 0]
+        m_l = sp[..., 0] + torch.roll(sp, 1, 0)[..., -1]
+        return 1.0 / torch.cat([m_l[..., None], sp[..., 1:-1], m_r[..., None]],
+                               -1)
 
 
 def dss_apply(s, w, left_col, right_col):

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import span
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
@@ -67,8 +68,9 @@ def dss2d_weights(spheremp: torch.Tensor, ex: int, ey: int) -> torch.Tensor:
     """Inverse assembled mass W (e, np, np): the two-pass sum applied to
     spheremp itself, inverted."""
     n = spheremp.shape[-1]
-    return (1.0 / dss2d_sum(spheremp.reshape(ex, ey, n, n))).reshape(
-        spheremp.shape)
+    with span("cdk.prepare"):
+        return (1.0 / dss2d_sum(spheremp.reshape(ex, ey, n, n))).reshape(
+            spheremp.shape)
 
 
 def dss_torus(s: torch.Tensor, w: torch.Tensor, ex: int,

@@ -39,6 +39,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import counted
 from cdk_torch.kernels.biharmonic.dss2d import dss2d_lane, dss2d_weights, torus_shape
 from cdk_torch.kernels.biharmonic.dss_resident import NPG, NPTS, validate
 from cdk_torch.kernels.biharmonic.operator import (
@@ -93,6 +94,7 @@ def dss2d_resident_plain(L: torch.Tensor, w: torch.Tensor,
     return q
 
 
+@counted
 def dss2d_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
                    ex: int, ey: int, nsteps: int,
                    precision: str = "highest") -> torch.Tensor:
@@ -106,6 +108,7 @@ def dss2d_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
         return dss2d_resident_plain(L, w, q_lane, ex, ey, nsteps, precision)
     out = launch(L, w, q_lane, ex, ey, nsteps, precision)
     dss2d_resident.launches += 1
+    dss2d_resident.steps += nsteps
     return out
 
 
@@ -138,9 +141,6 @@ def launch(L, w, q_lane, ex, ey, nsteps, precision):
             err = _lib().cdk_dss2d_resident_f64(*args, stream)
     build.check(err, "dss2d_resident")
     return out
-
-
-dss2d_resident.launches = 0  # kernel launches in this process
 
 
 def _dss2d_resident_forms(cfg, precision: str):

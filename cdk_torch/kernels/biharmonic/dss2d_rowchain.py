@@ -51,6 +51,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import counted
 from cdk_torch.kernels.biharmonic.dss2d import (
     _edge_pair_sum,
     dss2d_weights,
@@ -237,6 +238,7 @@ def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what, pad=0,
     return out
 
 
+@counted
 def rowchain_bridge_in(L, q_lane, ex, ey, precision="highest"):
     """t_0 = jpass(A q).  CUDA tensors launch the kernel (never anything
     else); CPU tensors run the plain version."""
@@ -246,9 +248,11 @@ def rowchain_bridge_in(L, q_lane, ex, ey, precision="highest"):
     out = _launch(BRIDGE_IN, L, None, q_lane, ex, ey, 1, precision, False,
                   "rowchain_bridge_in")
     rowchain_bridge_in.launches += 1
+    rowchain_bridge_in.steps += 1
     return out
 
 
+@counted
 def rowchain_step(F, w, t, ex, ey, nsteps=1, precision="highest",
                   squared=False):
     """nsteps chained t-steps in one launch (depth nsteps >= 1)."""
@@ -260,11 +264,13 @@ def rowchain_step(F, w, t, ex, ey, nsteps=1, precision="highest",
     out = _launch(STEP, F, w, t, ex, ey, nsteps, precision, squared,
                   "rowchain_step")
     rowchain_step.launches += 1
+    rowchain_step.steps += nsteps
     rowchain_step.depth_launches[nsteps] = (
         rowchain_step.depth_launches.get(nsteps, 0) + 1)
     return out
 
 
+@counted
 def rowchain_bridge_out(L, w, t, ex, ey, precision="highest"):
     """q = A(ipass(t)·w)."""
     _check(L, w, t, ex, ey, precision)
@@ -273,9 +279,11 @@ def rowchain_bridge_out(L, w, t, ex, ey, precision="highest"):
     out = _launch(BRIDGE_OUT, L, w, t, ex, ey, 1, precision, False,
                   "rowchain_bridge_out")
     rowchain_bridge_out.launches += 1
+    rowchain_bridge_out.steps += 1
     return out
 
 
+@counted
 def rowchain_step_padded(F, w, tp, ex, ey, nsteps=1, precision="highest",
                          squared=False, padded_out=False, out=None, tmp=None):
     """nsteps chained t-steps of a shard's ex owned rows in one launch (K16p
@@ -315,11 +323,13 @@ def rowchain_step_padded(F, w, tp, ex, ey, nsteps=1, precision="highest",
                   out=torch.empty(shape, dtype=tp.dtype, device=tp.device)
                   if out is None else out, tmp=tmp)
     rowchain_step_padded.launches += 1
+    rowchain_step_padded.steps += nsteps
     rowchain_step_padded.depth_launches[nsteps] = (
         rowchain_step_padded.depth_launches.get(nsteps, 0) + 1)
     return out
 
 
+@counted
 def rowchain_bridge_out_padded(L, w, tp, ex, ey, precision="highest"):
     """q = A(ipass(t)·w) of a shard's ex owned rows, tp padded by one row
     per side (K17p)."""
@@ -329,17 +339,13 @@ def rowchain_bridge_out_padded(L, w, tp, ex, ey, precision="highest"):
     out = _launch(BRIDGE_OUT, L, w, tp, ex, ey, 1, precision, False,
                   "rowchain_bridge_out_padded", pad=1)
     rowchain_bridge_out_padded.launches += 1
+    rowchain_bridge_out_padded.steps += 1
     return out
 
 
-# kernel launches in this process
-rowchain_bridge_in.launches = 0
-rowchain_step.launches = 0
-rowchain_step.depth_launches = {}  # depth -> launches
-rowchain_bridge_out.launches = 0
-rowchain_step_padded.launches = 0
-rowchain_step_padded.depth_launches = {}  # depth -> launches
-rowchain_bridge_out_padded.launches = 0
+# the step's launches by depth, beside its `launches` and `steps`
+rowchain_step.depth_launches = {}
+rowchain_step_padded.depth_launches = {}
 
 
 def _rowchain_forms(cfg, precision: str, precomposed: bool = False):

@@ -43,6 +43,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import counted
 from cdk_torch.kernels.biharmonic.dss import (
     dss_line_lane,
     dss_ring_lane,
@@ -191,6 +192,7 @@ def launch(L, w, q_lane, nsteps, precision, L2, what):
     return out
 
 
+@counted
 def dss_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
                  nsteps: int, precision: str = "highest",
                  L2: torch.Tensor | None = None) -> torch.Tensor:
@@ -205,10 +207,7 @@ def dss_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
     return out
 
 
-dss_resident.launches = 0  # kernel launches in this process
-dss_resident.steps = 0  # steps those launches ran
-
-
+@counted
 def dss_resident_window(L_ext: torch.Tensor, w_ext: torch.Tensor,
                         hl: torch.Tensor, q_lane: torch.Tensor,
                         hr: torch.Tensor, nsteps: int,
@@ -260,10 +259,6 @@ def dss_resident_window(L_ext: torch.Tensor, w_ext: torch.Tensor,
     dss_resident_window.launches += 1
     dss_resident_window.steps += nsteps
     return out
-
-
-dss_resident_window.launches = 0  # kernel launches in this process
-dss_resident_window.steps = 0  # steps those launches ran
 
 
 def _dss_resident_forms(cfg, precision: str, precomposed: bool = False):

@@ -31,6 +31,7 @@ import torch
 from cdk_torch.core import build
 from cdk_torch.core.platform import exact_fp32
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import counted, span
 from cdk_torch.kernels.biharmonic.operator import bf16_round
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -118,6 +119,7 @@ def _validate(dvv, elem, q_lane, precision):
                          f"{tuple(elem.shape)}, {tuple(q_lane.shape)}")
 
 
+@counted
 def fused_laplace(dvv: torch.Tensor, elem: torch.Tensor, q_lane: torch.Tensor,
                   rrearth: float, precision: str = "highest") -> torch.Tensor:
     """One weak Laplacian.  CUDA tensors launch the kernel (never anything
@@ -137,10 +139,8 @@ def fused_laplace(dvv: torch.Tensor, elem: torch.Tensor, q_lane: torch.Tensor,
             float(rrearth), int(precision == "default"), stream)
     build.check(err, "fused_laplace")
     fused_laplace.launches += 1
+    fused_laplace.steps += 1
     return out
-
-
-fused_laplace.launches = 0  # kernel launches in this process
 
 
 def _fused_forms(cfg, precision: str):
@@ -149,8 +149,10 @@ def _fused_forms(cfg, precision: str):
     def _run(data: BiharmonicData, n: int) -> torch.Tensor:
         """n launches (the JAX scan of its kernel); the element fields are
         packed and the layout changes once per call."""
-        elem = pack_element_fields(data.dinv, data.spheremp, data.tensorvisc)
-        dvv = data.dvv.contiguous()
+        with span("cdk.prepare"):
+            elem = pack_element_fields(data.dinv, data.spheremp,
+                                       data.tensorvisc)
+            dvv = data.dvv.contiguous()
         q = to_lane_layout(data.qtens)
         for _ in range(n):
             q = fused_laplace(dvv, elem, q, rr, precision)

@@ -27,6 +27,7 @@ import torch
 
 from cdk_torch.core.platform import exact_fp32
 from cdk_torch.core.registry import UnsupportedConfigError, register
+from cdk_torch.core.trace import count, span
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
     from_lane_layout,
@@ -39,15 +40,17 @@ def build_element_operator(dvv, dinv, spheremp, tensorvisc,
                            rrearth) -> torch.Tensor:
     """L: (nelemd, npts, npts) with out_flat = L[e] @ s_flat (C-order
     points p = i*np + j)."""
+    count("operator_builds")
     n = dvv.shape[0]
     npts = n * n
-    basis = torch.eye(npts, dtype=dvv.dtype, device=dvv.device).reshape(
-        npts, n, n)
-    # out[e, b] = laplace of basis field b under element e's fields
-    out = laplace_sphere_wk(basis[None], dvv, dinv[:, None],
-                            spheremp[:, None], tensorvisc[:, None], rrearth)
-    # L[e, p_out, p_in] = out[e, p_in] at flattened p_out
-    return out.reshape(-1, npts, npts).transpose(1, 2).contiguous()
+    with span("cdk.prepare"):
+        basis = torch.eye(npts, dtype=dvv.dtype, device=dvv.device).reshape(
+            npts, n, n)
+        # out[e, b] = laplace of basis field b under element e's fields
+        out = laplace_sphere_wk(basis[None], dvv, dinv[:, None],
+                                spheremp[:, None], tensorvisc[:, None], rrearth)
+        # L[e, p_out, p_in] = out[e, p_in] at flattened p_out
+        return out.reshape(-1, npts, npts).transpose(1, 2).contiguous()
 
 
 PRECISIONS = ("highest", "high", "default")
@@ -88,7 +91,8 @@ def precompose_operator(L: torch.Tensor) -> torch.Tensor:
     once at prepare for the precomposed chains (the JAX package's
     `precompose_operator`, a 'highest' einsum)."""
     exact_fp32()
-    return torch.bmm(L, L)
+    with span("cdk.prepare"):
+        return torch.bmm(L, L)
 
 
 def blockdiag_operator(L: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch
 
 from cdk_torch.core.config import BiharmonicConfig
 from cdk_torch.core.frng import Lcg
+from cdk_torch.core.trace import span
 
 
 @dataclass
@@ -115,11 +116,13 @@ def to_lane_layout(qtens: torch.Tensor) -> torch.Tensor:
     """(e, q, k, i, j) -> contiguous (e, npts, ncol): GLL points in rows,
     the fused (q, k) batch innermost."""
     e, q, k, n, _ = qtens.shape
-    return qtens.reshape(e, q * k, n * n).transpose(1, 2).contiguous()
+    with span("cdk.layout"):
+        return qtens.reshape(e, q * k, n * n).transpose(1, 2).contiguous()
 
 
 def from_lane_layout(q_lane: torch.Tensor, cfg: BiharmonicConfig) -> torch.Tensor:
     """Inverse of to_lane_layout."""
     e = q_lane.shape[0]
     n = cfg.np_gll
-    return q_lane.transpose(1, 2).reshape(e, cfg.qsize, cfg.nlev, n, n)
+    with span("cdk.layout"):
+        return q_lane.transpose(1, 2).reshape(e, cfg.qsize, cfg.nlev, n, n)

@@ -33,6 +33,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import counted
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     element_operator,
@@ -110,6 +111,7 @@ def _launch(L: torch.Tensor, q_lane: torch.Tensor, n: int,
     return out
 
 
+@counted
 def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
                  precision: str = "highest") -> torch.Tensor:
     """K1: run n chained applications.  CUDA tensors launch the kernel
@@ -119,12 +121,11 @@ def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
         return bd8_resident_plain(L, q_lane, n, precision)
     out = _launch(L, q_lane, n, precision)
     bd8_resident.launches += 1
+    bd8_resident.steps += n
     return out
 
 
-bd8_resident.launches = 0  # kernel launches in this process
-
-
+@counted
 def apply_operator_pallas(L: torch.Tensor, q_lane: torch.Tensor) -> torch.Tensor:
     """K5: out[e] = L[e] @ q_lane[e], exact products, one launch of the
     operator kernel at n = 1 (CPU tensors: the exact batched product)."""
@@ -133,10 +134,8 @@ def apply_operator_pallas(L: torch.Tensor, q_lane: torch.Tensor) -> torch.Tensor
         return bd8_resident_plain(L, q_lane, 1)
     out = _launch(L, q_lane, 1, "highest")
     apply_operator_pallas.launches += 1
+    apply_operator_pallas.steps += 1
     return out
-
-
-apply_operator_pallas.launches = 0  # kernel launches in this process
 
 
 @register(

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import counted
 from cdk_torch.kernels.cke.launch import check_inputs, launch
 from cdk_torch.kernels.cke.problem import CkeData
 from cdk_torch.kernels.cke.reference import coef3_of, fsign1
@@ -45,6 +46,7 @@ def cke_lanegather_plain(cells_t, c1t, c3t, tm_t, ntfm_t, sgn_t,
     return ntfm_t * (s1 + coef3 * s3 * sgn_t)
 
 
+@counted
 def cke_lanegather(cells_t, c1t, c3t, tm_t, ntfm_t, sgn_t, coef3: float):
     """The flux of cke_lanegather_plain, (K, E).  CUDA tensors launch the
     kernel (never anything else); CPU tensors run cke_lanegather_plain.
@@ -67,10 +69,8 @@ def cke_lanegather(cells_t, c1t, c3t, tm_t, ntfm_t, sgn_t, coef3: float):
            [cells_t, c1t, c3t, tm_t, ntfm_t, sgn_t, tab, out_t], [e, c, a, k],
            coef3)
     cke_lanegather.launches += 1
+    cke_lanegather.steps += 1
     return out_t
-
-
-cke_lanegather.launches = 0  # kernel launches in this process
 
 
 @register(

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from cdk_torch.core.registry import UnsupportedConfigError, register
+from cdk_torch.core.trace import counted
 from cdk_torch.kernels.cke.launch import check_inputs, launch
 from cdk_torch.kernels.cke.onehot_mxu import (
     apply_onehot,
@@ -46,6 +47,7 @@ def cke_onehot_plain(cells, c1, c3, t, ntf, adv_mask, coef3: float,
     return apply_onehot(a1, a3, t, ntf, adv_mask, coef3)
 
 
+@counted
 def cke_onehot(cells, c1, c3, t, ntf, adv_mask, coef3: float,
                bf16: bool = False):
     """The flux of cke_onehot_plain.  CUDA tensors launch the kernel (never
@@ -63,10 +65,8 @@ def cke_onehot(cells, c1, c3, t, ntf, adv_mask, coef3: float,
     launch("cke_onehot", "cdk_cke_onehot", [cells, c1, c3, t, ntf, adv_mask, out],
            [e, c, a, k], coef3, flag=int(bf16) if t.dtype == torch.float32 else None)
     cke_onehot.launches += 1
+    cke_onehot.steps += 1
     return out
-
-
-cke_onehot.launches = 0  # kernel launches in this process
 
 
 def _make_pallas(cfg, bf16: bool):

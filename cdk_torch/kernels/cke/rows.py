@@ -25,12 +25,14 @@ from __future__ import annotations
 import torch
 
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import counted
 from cdk_torch.kernels.cke.gather_peradv import gather_flux as cke_rows_plain
 from cdk_torch.kernels.cke.launch import check_inputs, launch
 from cdk_torch.kernels.cke.problem import CkeData
 from cdk_torch.kernels.cke.reference import coef3_of
 
 
+@counted
 def cke_rows(cells, c1, c3, t, ntf, adv_mask, coef3: float):
     """The flux of cke_rows_plain.  CUDA tensors launch the kernel (never
     anything else); CPU tensors run cke_rows_plain.  Cell indices lie in
@@ -46,10 +48,8 @@ def cke_rows(cells, c1, c3, t, ntf, adv_mask, coef3: float):
     launch("cke_rows", "cdk_cke_rows", [cells, c1, c3, t, ntf, adv_mask, out],
            [e, c, a, k], coef3)
     cke_rows.launches += 1
+    cke_rows.steps += 1
     return out
-
-
-cke_rows.launches = 0  # kernel launches in this process
 
 
 @register(

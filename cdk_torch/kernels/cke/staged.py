@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from cdk_torch.core.registry import UnsupportedConfigError, register
+from cdk_torch.core.trace import counted
 from cdk_torch.kernels.cke.launch import check_inputs, launch
 from cdk_torch.kernels.cke.problem import CkeData
 from cdk_torch.kernels.cke.reference import coef3_of, slot_order_flux
@@ -38,6 +39,7 @@ def cke_staged_plain(staged, c1, c3, ntf, adv_mask, coef3: float):
     return slot_order_flux(staged, c1, c3, ntf, adv_mask, coef3)
 
 
+@counted
 def cke_staged(staged, c1, c3, ntf, adv_mask, coef3: float):
     """The flux of cke_staged_plain.  CUDA tensors launch the kernel (never
     anything else); CPU tensors run cke_staged_plain."""
@@ -52,10 +54,8 @@ def cke_staged(staged, c1, c3, ntf, adv_mask, coef3: float):
     launch("cke_staged", "cdk_cke_staged", [staged, c1, c3, ntf, adv_mask, out],
            [e, a, k], coef3)
     cke_staged.launches += 1
+    cke_staged.steps += 1
     return out
-
-
-cke_staged.launches = 0  # kernel launches in this process
 
 
 @register(

@@ -32,6 +32,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import counted, span
 from cdk_torch.kernels.mpdata.launch import check_levels, check_warps
 from cdk_torch.kernels.mpdata.problem import MpdataData
 from cdk_torch.kernels.mpdata.reference import advect_scalar2d
@@ -41,12 +42,14 @@ FIELDS = ("f", "u", "w", "rho", "rhow", "adz", "flux")
 
 def to_xzs(t: torch.Tensor) -> torch.Tensor:
     """(S, ...) -> contiguous (..., S): the slice axis last."""
-    return t.movedim(0, -1).contiguous()
+    with span("cdk.layout"):
+        return t.movedim(0, -1).contiguous()
 
 
 def from_xzs(t: torch.Tensor) -> torch.Tensor:
     """Inverse of to_xzs."""
-    return t.movedim(-1, 0).contiguous()
+    with span("cdk.layout"):
+        return t.movedim(-1, 0).contiguous()
 
 
 def advect_lanes_plain(f, u, w, rho, rhow, adz, flux):
@@ -84,6 +87,7 @@ def _validate(f, u, w, rho, rhow, adz, flux):
         check_levels(nzm, "advect_lanes")
 
 
+@counted
 def advect_lanes(f, u, w, rho, rhow, adz, flux, *, warps=None):
     """One step on (x, z, s) fields; returns (f, flux) in (x, z, s).  CUDA
     tensors launch the kernel (never anything else); CPU tensors run
@@ -105,10 +109,8 @@ def advect_lanes(f, u, w, rho, rhow, adz, flux, *, warps=None):
                  flux_out.data_ptr(), s, xf - 6, nzm, check_warps(warps), stream)
     build.check(err, "advect_lanes")
     advect_lanes.launches += 1
+    advect_lanes.steps += 1
     return f_out, flux_out
-
-
-advect_lanes.launches = 0  # kernel launches in this process, one a call
 
 
 @register(

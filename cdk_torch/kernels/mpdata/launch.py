@@ -2,11 +2,11 @@
 csrc/mpdata_resident.cu, the step kernel in its hoisted form (K2, K9; see
 resident.py) and its staged form (K6, K7, K8; see staged.py), and
 csrc/mpdata_masked.cu, the masked-global step (K20-K25; see masked.py).
-The ctypes entry points, the launch count every wrapper of both sources
-uses (`counted`), the level limit both take (`check_levels`: the sweep
-holds any nx and at most `cdk_mpdata_max_levels()` levels), the checks of
-the resident/staged wrappers, `step_kernel`, which makes such a wrapper,
-and `resident_forms`, the registry forms of an n-steps-per-launch variant.
+The ctypes entry points, the level limit both take (`check_levels`: the
+sweep holds any nx and at most `cdk_mpdata_max_levels()` levels), the
+checks of the resident/staged wrappers, `step_kernel`, which makes such a
+wrapper (counted by `core/trace.py`'s `counted`, as every wrapper is), and
+`resident_forms`, the registry forms of an n-steps-per-launch variant.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import UnsupportedConfigError
+from cdk_torch.core.trace import counted, span
 from cdk_torch.kernels.mpdata.problem import MpdataData
 
 
@@ -56,15 +57,6 @@ def check_warps(warps: int | None) -> int:
     if warps not in (1, 2, 4, 8):
         raise ValueError(f"warps a slice must be 1, 2, 4 or 8 (got {warps})")
     return warps
-
-
-def counted(fn):
-    """Give the kernel wrapper `fn` its launch count, to which it adds one
-    where it launches its kernel and nowhere else, and its step count, to
-    which it adds the steps that launch ran."""
-    fn.launches = 0  # kernel launches in this process
-    fn.steps = 0  # MPDATA steps those launches ran
-    return fn
 
 
 _ENTRY = {(True, torch.float32): "cdk_mpdata_resident_f32",
@@ -141,8 +133,9 @@ def resident_forms(run):
     launch at n = 1 and `loop` one launch at n."""
     def prepare(data: MpdataData):
         """The step-invariant fields, contiguous (untimed staging)."""
-        return tuple(t.contiguous() for t in
-                     (data.u, data.w, data.rho, data.rhow, data.adz))
+        with span("cdk.prepare"):
+            return tuple(t.contiguous() for t in
+                         (data.u, data.w, data.rho, data.rhow, data.adz))
 
     def step(aux, data: MpdataData):
         return run(data.f.contiguous(), *aux, data.flux.contiguous(), 1)

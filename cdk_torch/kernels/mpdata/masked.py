@@ -47,12 +47,8 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.platform import exact_fp32
-from cdk_torch.kernels.mpdata.launch import (
-    _lib,
-    check_levels,
-    check_warps,
-    counted,
-)
+from cdk_torch.core.trace import counted
+from cdk_torch.kernels.mpdata.launch import _lib, check_levels, check_warps
 from cdk_torch.kernels.mpdata.reference import (
     EPS,
     _across,

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from cdk_torch.core.registry import register
+from cdk_torch.core.trace import span
 from cdk_torch.kernels.mpdata.launch import resident_forms, step_kernel
 from cdk_torch.kernels.mpdata.problem import MpdataData
 from cdk_torch.kernels.mpdata.reference import advect_scalar2d
@@ -63,8 +64,9 @@ advect_staged_resident = step_kernel(
 
 def _invariants(data: MpdataData, dtype):
     """u, w, rho, rhow, adz in the kernel's dtype, contiguous."""
-    return tuple(t.to(dtype).contiguous() for t in
-                 (data.u, data.w, data.rho, data.rhow, data.adz))
+    with span("cdk.prepare"):
+        return tuple(t.to(dtype).contiguous() for t in
+                     (data.u, data.w, data.rho, data.rhow, data.adz))
 
 
 @register(
