@@ -11,7 +11,8 @@ itself too; a reader takes the union of a name's intervals.
                        element operator (`operator.build_element_operator`),
                        A² (`precompose_operator`), the DSS weights
                        (`dss.dss_weights`, `dss2d.dss2d_weights`), the
-                       variants' `prepare` and the MPDATA invariants
+                       variants' `prepare` (the lookup of a reused one
+                       too) and the MPDATA invariants
     cdk.layout         the layout turns: `problem.to_lane_layout` /
                        `from_lane_layout`, `lanes.to_xzs` / `from_xzs`,
                        `mesh.shard_x` / `gather_x`
@@ -28,6 +29,10 @@ it, and runs each call inside `span("cdk.kernel")`.  `count(name)` is a
 plain process-wide counter:
 
     operator_builds    calls of `operator.build_element_operator`
+    prepare_reuses     calls of a HOMME form's set-up that returned the
+                       result built from the same element fields
+                       (`operator.reuse_prepare`); with operator_builds
+                       the hit share reuses / (reuses + builds)
 
 `counts()` is a snapshot of both, so a caller reads what a stretch of work
 did as the difference of two snapshots.

@@ -30,6 +30,7 @@ from cdk_torch.core.trace import span
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
+    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -133,6 +134,7 @@ def _fused_dss_forms(cfg, precision):
     rr = rrearth_as(cfg)
     npg = cfg.np_gll
 
+    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)

@@ -28,6 +28,7 @@ from cdk_torch.core.trace import span
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
+    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -128,6 +129,7 @@ def _fused_dss2d_forms(cfg, precision):
     npg = cfg.np_gll
     ex, ey = torus_shape(cfg.nelemd)
 
+    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)

@@ -45,6 +45,7 @@ from cdk_torch.kernels.biharmonic.dss_resident import NPG, NPTS, validate
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
+    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -148,6 +149,7 @@ def _dss2d_resident_forms(cfg, precision: str):
     ex, ey = torus_shape(cfg.nelemd)
     depth = loop_depth(ey)
 
+    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)

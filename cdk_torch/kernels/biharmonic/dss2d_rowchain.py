@@ -61,6 +61,7 @@ from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
     precompose_operator,
+    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -353,6 +354,7 @@ def _rowchain_forms(cfg, precision: str, precomposed: bool = False):
     ex, ey = torus_shape(cfg.nelemd)
     depth = loop_depth(precision, precomposed)
 
+    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)

@@ -53,6 +53,7 @@ from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
     precompose_operator,
+    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -264,6 +265,7 @@ def dss_resident_window(L_ext: torch.Tensor, w_ext: torch.Tensor,
 def _dss_resident_forms(cfg, precision: str, precomposed: bool = False):
     rr = rrearth_as(cfg)
 
+    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)

@@ -32,7 +32,7 @@ from cdk_torch.core import build
 from cdk_torch.core.platform import exact_fp32
 from cdk_torch.core.registry import register
 from cdk_torch.core.trace import counted, span
-from cdk_torch.kernels.biharmonic.operator import bf16_round
+from cdk_torch.kernels.biharmonic.operator import bf16_round, reuse_prepare
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
     from_lane_layout,
@@ -146,22 +146,30 @@ def fused_laplace(dvv: torch.Tensor, elem: torch.Tensor, q_lane: torch.Tensor,
 def _fused_forms(cfg, precision: str):
     rr = rrearth_as(cfg)
 
-    def _run(data: BiharmonicData, n: int) -> torch.Tensor:
-        """n launches (the JAX scan of its kernel); the element fields are
-        packed and the layout changes once per call."""
+    def fields(data: BiharmonicData):
+        """dvv and the packed element fields, as the kernel reads them."""
         with span("cdk.prepare"):
-            elem = pack_element_fields(data.dinv, data.spheremp,
-                                       data.tensorvisc)
-            dvv = data.dvv.contiguous()
-        q = to_lane_layout(data.qtens)
+            return data.dvv.contiguous(), pack_element_fields(
+                data.dinv, data.spheremp, data.tensorvisc)
+
+    reused_fields = reuse_prepare(fields)
+
+    def _run(dvv, elem, qtens, n: int) -> torch.Tensor:
+        """n launches (the JAX scan of its kernel); the layout changes once
+        per call."""
+        q = to_lane_layout(qtens)
         for _ in range(n):
             q = fused_laplace(dvv, elem, q, rr, precision)
         return from_lane_layout(q, cfg)
 
     def step(data: BiharmonicData) -> torch.Tensor:
-        return _run(data, 1)
+        return _run(*fields(data), data.qtens, 1)
 
-    return {"step": step, "loop": _run}
+    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+        """n launches; the fields packed once per set of element fields."""
+        return _run(*reused_fields(data), data.qtens, n)
+
+    return {"step": step, "loop": loop}
 
 
 @register(

@@ -37,6 +37,7 @@ from cdk_torch.core.trace import counted
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     element_operator,
+    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -148,6 +149,7 @@ def apply_operator_pallas(L: torch.Tensor, q_lane: torch.Tensor) -> torch.Tensor
 def make_fused_operator_pallas(cfg):
     rr = rrearth_as(cfg)
 
+    @reuse_prepare
     def prepare(data: BiharmonicData):
         return (element_operator(data, rr),)
 
@@ -158,7 +160,7 @@ def make_fused_operator_pallas(cfg):
 
     def loop(data: BiharmonicData, n: int) -> torch.Tensor:
         """n launches, one step each (as the JAX scan of its kernel)."""
-        L = element_operator(data, rr)
+        (L,) = prepare(data)
         q = to_lane_layout(data.qtens)
         for _ in range(n):
             q = apply_operator_pallas(L, q)
@@ -170,6 +172,7 @@ def make_fused_operator_pallas(cfg):
 def _bd8_resident_forms(cfg, precision: str):
     rr = rrearth_as(cfg)
 
+    @reuse_prepare
     def prepare(data: BiharmonicData):
         return (element_operator(data, rr),)
 
@@ -184,7 +187,8 @@ def _bd8_resident_forms(cfg, precision: str):
     def loop(data: BiharmonicData, n: int) -> torch.Tensor:
         """n applications in one launch (the timed path); the layout
         changes once at each end, not per step."""
-        return _run(element_operator(data, rr), data.qtens, n)
+        (L,) = prepare(data)
+        return _run(L, data.qtens, n)
 
     return {"prepare": prepare, "step": step, "loop": loop}
 

@@ -17,9 +17,10 @@ the device seconds of the activities launched under it (the profiler's
 correlation link gives each call its activities, `kernels`; a call counts
 for its innermost enclosing `cdk.` span) and of its device-side copies; the idle time by the
 innermost span the host was in, the program's spans included; the
-counters' difference; the step time of each window; and the five readings
-a benchmark metric of these spans would give (none where a span or counter
-is absent, as on a tree without core/trace.py).  No reference check runs.
+counters' difference; the step time of each window; and the readings a
+benchmark metric of these spans would give, with the set-up's hit share
+beside the operator builds (none where a span or counter is absent, as on
+a tree without core/trace.py).  No reference check runs.
 """
 
 from __future__ import annotations
@@ -149,6 +150,23 @@ def program_spans(events, bench_spans) -> dict:
     }
 
 
+def counter_readings(delta, intervals: int) -> dict:
+    """The counters' difference over a window of `intervals` intervals ->
+    operator builds and set-up reuses an interval, and the hit share
+    reuses / (reuses + builds); all None without counters (a tree without
+    core/trace.py), the share None where neither counted."""
+    if delta is None:
+        return dict.fromkeys(("operator_builds_per_interval",
+                              "prepare_reuses_per_interval",
+                              "prepare_hit_share"))
+    builds = delta.get("operator_builds", 0)
+    reuses = delta.get("prepare_reuses", 0)
+    return {"operator_builds_per_interval": builds / intervals,
+            "prepare_reuses_per_interval": reuses / intervals,
+            "prepare_hit_share": (reuses / (reuses + builds)
+                                  if reuses + builds else None)}
+
+
 class _Without:
     """A profiler's events less the device-side copies of `cdk.` spans."""
 
@@ -216,9 +234,7 @@ def main(argv=None) -> int:
 
     readings = {
         "prepare_us_per_step": per_step(spans["host_s"], "cdk.prepare"),
-        "operator_builds_per_interval": (
-            None if delta is None else
-            delta.get("operator_builds", 0) / summary["intervals"]),
+        **counter_readings(delta, summary["intervals"]),
         "layout_us_per_step": per_step(spans["device_s"], "cdk.layout"),
         "exchange_us_per_step": per_step(spans["device_s"],
                                          "cdk.dist.exchange"),

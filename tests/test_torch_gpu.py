@@ -27,6 +27,7 @@ from cdk_torch.core.config import (
 )
 from cdk_torch.core.norms import pointwise_check, rel_l1, rel_l2
 from cdk_torch.core.platform import resolve_device
+from cdk_torch.core import registry, trace
 from cdk_torch.core.registry import UnsupportedConfigError, variants
 from cdk_torch.harness.driver import run_kernel
 from cdk_torch.kernels.biharmonic import dss2d_resident as dres2
@@ -502,6 +503,33 @@ def test_driver_runs_dss_families_through_the_kernels(cuda, kernel, nelemd):
                          device=cuda)
     assert len(results) == len(variants(kernel)) and all(r.ok for r in results), results
     assert all(w.launches > b for w, b in zip(wrappers, before))
+
+
+@pytest.mark.parametrize("family,name,wrapper", [
+    ("biharmonic_dss2d", "fused_operator_rowchain_sq_x3", rc.rowchain_bridge_in),
+    ("biharmonic", "fused_operator_bd8_resident", bres.bd8_resident)])
+def test_homme_loop_reuses_its_set_up_on_the_card(cuda, family, name, wrapper):
+    """The benchmark's two HOMME loops on the card: two calls reuse the
+    set-up built when the variant was materialised, build no operator,
+    launch their kernels and give bit for bit the output of the variant
+    materialised anew on the same data."""
+    cfg = with_overrides(BiharmonicConfig(), nelemd=16, nlev=4, qsize=10,
+                         dtype="float32", rrearth=0.1)
+    data = bproblem.init_data(cfg).to(cuda)
+    variant = registry.get(family, name)
+    _, _, loop = registry._materialize(variant, cfg, data)
+    before, launches = trace.counts(), wrapper.launches
+    first = loop(data, 6)
+    second = loop(data, 6)
+    torch.cuda.synchronize()
+    after = trace.counts()
+    assert after["operator_builds"] == before["operator_builds"]
+    assert after["prepare_reuses"] == before.get("prepare_reuses", 0) + 2
+    assert wrapper.launches == launches + 2
+    assert first.abs().min() > 0
+    assert torch.equal(second, first)
+    _, _, fresh = registry._materialize(variant, cfg, data)
+    assert torch.equal(fresh(data, 6), first)
 
 
 @pytest.mark.parametrize("ncol", [8, 200])

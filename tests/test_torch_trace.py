@@ -1,8 +1,9 @@
 """The port's spans and counters (cdk_torch/core/trace.py) on the CPU: the
 null context when no profiler records, the spans a HOMME loop and the dist
-MPDATA loop record under torch.profiler, the operator-build counter, every
-kernel wrapper registered with its `launches` and `steps`, and the
-reduction of `scripts/torch_trace_spans.py` on a fixed timeline."""
+MPDATA loop record under torch.profiler, the operator-build and set-up
+reuse counters, every kernel wrapper registered with its `launches` and
+`steps`, and the reductions of `scripts/torch_trace_spans.py` on a fixed
+timeline and on fixed counters."""
 
 import importlib.util
 from pathlib import Path
@@ -113,14 +114,25 @@ def test_homme_loop_records_prepare_layout_and_kernel(family, name):
     assert not any(n.startswith("cdk.dist.") for n in spans)
 
 
+def _builds_and_reuses():
+    c = trace.counts()
+    return c.get("operator_builds", 0), c.get("prepare_reuses", 0)
+
+
 @pytest.mark.parametrize("family,name", HOMME_LOOPS)
-def test_operator_builds_rise_by_one_a_loop_call(family, name):
-    run = _homme_loop(family, name)
-    for _ in range(2):
-        before = trace.counts()["operator_builds"] if (
-            "operator_builds" in trace.counts()) else 0
-        run()
-        assert trace.counts()["operator_builds"] == before + 1
+def test_operator_builds_once_per_element_fields(family, name):
+    """_materialize builds; later loop calls on the same fields reuse; an
+    in-place write to one field makes the next call build again."""
+    data = bp.init_data(HOMME)
+    b0, r0 = _builds_and_reuses()
+    _, _, loop = registry._materialize(registry.get(family, name), HOMME, data)
+    assert _builds_and_reuses() == (b0 + 1, r0)
+    for k in (1, 2):
+        loop(data, 3)
+        assert _builds_and_reuses() == (b0 + 1, r0 + k)
+    data.spheremp.mul_(1.5)
+    loop(data, 3)
+    assert _builds_and_reuses() == (b0 + 2, r0 + 2)
 
 
 def test_dist_mpdata_loop_records_exchange_and_gather():
@@ -235,3 +247,19 @@ def test_script_reduction_on_a_known_timeline():
     assert gaps == pytest.approx({"cdk.prepare": 35e-6, "path.loop": 15e-6,
                                   "cdk.layout": 5e-6, "cdk.kernel": 5e-6,
                                   "sync": 5e-6})
+
+
+@pytest.mark.parametrize("delta,want", [
+    (None, (None, None, None)),
+    ({}, (0.0, 0.0, None)),
+    ({"operator_builds": 4}, (0.5, 0.0, 0.0)),
+    ({"prepare_reuses": 8, "cdk_x.launches": 3}, (0.0, 1.0, 1.0)),
+    ({"operator_builds": 2, "prepare_reuses": 6}, (0.25, 0.75, 0.75)),
+])
+def test_script_counter_readings(delta, want):
+    """Builds and reuses an interval over 8 intervals, and the hit share;
+    None without counters or, for the share, where neither counted."""
+    got = _script().counter_readings(delta, 8)
+    assert got == dict(zip(("operator_builds_per_interval",
+                            "prepare_reuses_per_interval",
+                            "prepare_hit_share"), want))
