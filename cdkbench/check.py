@@ -1,10 +1,11 @@
 """The comparison that decides `correct`.
 
 Each output the timed path produced is held against the benchmark's plain
-reference (float64) by the family gate's own norm (relative L2 on the
-biharmonic state, relative L1 on MPDATA's f and flux: the port's
-`harness/specs.py` norms, copied here) and by the relative largest
-pointwise error, which a single wrong value moves.  A number that is not
+reference (float64) by the family gate's own norm, which the family's
+reference names as `NORM` (relative L2 on the biharmonic state, relative L1
+on MPDATA's f and flux: the port's `harness/specs.py` norms, copied here),
+and by the relative largest pointwise error, which a single wrong value
+moves.  A number that is not
 finite reads infinity.  Every number has its own limit (`limits/<cell>.json`),
 set from readings of the program and of the control; a reading passes at or
 below its limit.
@@ -15,10 +16,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-# the gate norm of each family
-NORMS = {"biharmonic": "rel_l2", "biharmonic_dss2d": "rel_l2", "mpdata": "rel_l1"}
-
 
 def _finite(x: float) -> float:
     return x if math.isfinite(x) else math.inf
@@ -46,17 +43,18 @@ def rel_linf(x: torch.Tensor, ref: torch.Tensor) -> float:
     return _finite(num / den if den > 0 else num)
 
 
-def readings(family: str, outs: dict, ref: dict) -> dict:
-    """name -> number for every output: `<output>.<gate norm>` and
+def readings(norm: str, outs: dict, ref: dict) -> dict:
+    """name -> number for every output: `<output>.<norm>`, the gate norm
+    (`rel_l2` or `rel_l1`, the family reference's NORM), and
     `<output>.rel_linf`."""
-    norm = {"rel_l2": rel_l2, "rel_l1": rel_l1}[NORMS[family]]
+    gate = {"rel_l2": rel_l2, "rel_l1": rel_l1}[norm]
     got = {}
     for name, r in ref.items():
         x = outs[name]
         if x.shape != r.shape:
-            got[f"{name}.{NORMS[family]}"] = got[f"{name}.rel_linf"] = math.inf
+            got[f"{name}.{norm}"] = got[f"{name}.rel_linf"] = math.inf
             continue
-        got[f"{name}.{NORMS[family]}"] = norm(x, r)
+        got[f"{name}.{norm}"] = gate(x, r)
         got[f"{name}.rel_linf"] = rel_linf(x, r)
     return got
 

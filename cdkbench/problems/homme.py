@@ -14,6 +14,9 @@ OUTPUTS = ("q",)
 # output -> the field of the program's data it becomes when an interval
 # hands its state to the next
 STATE = {"q": "qtens"}
+# the CPU tests' sizes over the configuration's: a 4 x 3 torus of 4-level,
+# 2-tracer elements
+TINY = dict(nelemd=12, nlev=4, qsize=2)
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 

@@ -20,6 +20,9 @@ OUTPUTS = ("f", "flux")
 # output -> the field of the program's data it becomes when an interval
 # hands its state to the next
 STATE = {"f": "f", "flux": "flux"}
+# the CPU tests' sizes over the configuration's: 4 CRMs of 8 columns and 12
+# levels
+TINY = dict(nslices=4, nx=8, nz=12)
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 

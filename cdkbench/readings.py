@@ -58,7 +58,7 @@ def readings(cell: dict, seed: int, control: bool, device, overrides=None,
     if device.type == "cuda":
         torch.cuda.synchronize()
     ref = ref_mod.interval(cfg, inp, steps, "float64")
-    return chk.readings(family, outs, ref)
+    return chk.readings(ref_mod.NORM, outs, ref)
 
 
 def main(argv=None) -> int:

@@ -103,3 +103,5 @@ def interval(cfg: dict, raw: dict, steps: int, precision: str) -> dict:
 # the control's precision: the step below the float32 with TF32 off that
 # the family's products state
 CONTROL = "tf32"
+# the gate's norm (check.py), as the port's harness/specs.py gates the family
+NORM = "rel_l2"

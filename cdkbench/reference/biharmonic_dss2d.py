@@ -15,10 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from cdkbench.reference.biharmonic import (CONTROL, by_blocks, element_fields,
-                                           laplace_sphere_wk)
+from cdkbench.reference.biharmonic import (CONTROL, NORM, by_blocks,
+                                           element_fields, laplace_sphere_wk)
 
-__all__ = ["CONTROL", "interval", "torus_shape"]
+__all__ = ["CONTROL", "NORM", "interval", "torus_shape"]
 
 
 def torus_shape(nelemd: int) -> tuple[int, int]:

@@ -215,6 +215,8 @@ def advect_scalar2d(f, u, w, rho, rhow, adz, flux_in):
 DTYPES = {"float64": torch.float64, "bfloat16": torch.bfloat16}
 # the control's precision
 CONTROL = "bfloat16"
+# the gate's norm (check.py), as the port's harness/specs.py gates the family
+NORM = "rel_l1"
 
 
 def interval(cfg: dict, raw: dict, steps: int, precision: str) -> dict:

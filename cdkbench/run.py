@@ -22,7 +22,9 @@ from that interval's input, with the limits of limits/<cell>.json.  Every
 number compared is printed beside its limit as the last lines on stderr
 and under "checks", the last key of the result line, which is the last line
 on stdout.  Without a CUDA card, or with fewer cards than the cell asks
-for, it prints no result and exits 2.
+for, it prints no result and exits 2; where the process holds JAX or the
+JAX package (FORBIDDEN) once the window has closed, it names the modules
+on stderr, prints no result and exits 3.
 """
 
 import time
@@ -49,12 +51,17 @@ WARM = CHECKED + 2
 # not ended it first, so the trace stays small enough to read in seconds
 TRACE_MAX_INTERVALS = 500
 TRACE_MAX_STEPS = 6000
+# top-level modules the process that prints a result may not hold: the
+# benchmark measures the port alone, never JAX or the JAX package
+FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "cdk_tpu"})
 
 
 def load(kind: str, name: str):
-    """The module cdkbench/<kind>/<name>.py."""
+    """The module cdkbench/<kind>/<name>.py (`kind` may be a path, such as
+    "tests/faults")."""
     path = HERE / kind / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"cdkbench_{kind}_{name}", path)
+    spec = importlib.util.spec_from_file_location(
+        f"cdkbench_{kind.replace('/', '_')}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -69,6 +76,13 @@ def cell_of(name: str, bench: dict) -> dict:
         if cell["name"] == name:
             return cell
     raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
+
+
+def forbidden_loaded(modules=None) -> list:
+    """The names in `modules` (sys.modules) whose top-level name, whole, is
+    in FORBIDDEN: `cdk_tpu.x` is, `cdk_torch` is not."""
+    modules = sys.modules if modules is None else modules
+    return sorted(m for m in list(modules) if m.split(".")[0] in FORBIDDEN)
 
 
 def metrics_for(bench: dict, cell: str, trace: bool) -> list:
@@ -239,7 +253,9 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
                        intervals=len(ms))
     summary["steps"] = summary["intervals"] * steps
     intervals = len(ms)
-    mem = (torch.cuda.max_memory_allocated() if device.type == "cuda" else 0)
+    # the peak of the fullest card the cell uses
+    mem = (max(torch.cuda.max_memory_allocated(i) for i in range(cell["chips"]))
+           if device.type == "cuda" else 0)
 
     # the check: after the window, the program's state freed but for the
     # kept intervals, the reference from each kept interval's input (once
@@ -247,14 +263,14 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
     kept = keeper.kept
     changed = sum(not torch.equal(a, b) for a, b in zip(path.state, state))
     del path, keeper, state
-    reference = load("reference", family).interval
-    seeded = None if traffic["state"] == "carried" else reference(
+    reference = load("reference", family)
+    seeded = None if traffic["state"] == "carried" else reference.interval(
         cfg, raw, steps, "float64")
     per = []
     for inp, outs in kept:
-        ref = seeded if seeded is not None else reference(
+        ref = seeded if seeded is not None else reference.interval(
             cfg, inp, steps, "float64")
-        per.append(chk.readings(family, outs, ref))
+        per.append(chk.readings(reference.NORM, outs, ref))
         del ref
     got = {**chk.worst(per), "state_changed": float(changed)}
     checks = chk.judge(got, {**limits, "state_changed": 0.0})
@@ -269,7 +285,7 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"),
-           "count": 1, "memory_peak_bytes": int(mem)}
+           "count": cell["chips"], "memory_peak_bytes": int(mem)}
     if trace:
         dev.update(busy_s=summary["busy_s"], window_s=summary["window_s"])
     result = {"correct": correct, "attempted": intervals, "failed": failed,
@@ -314,6 +330,12 @@ def main(argv=None) -> int:
 
     result, lines = run_cell(cell, bench, args.seed, args.seconds,
                              bool(args.trace), resolve_device("cuda"))
+    loaded = forbidden_loaded()
+    if loaded:
+        print(f"cdkbench: the run's process holds {', '.join(loaded)} once the "
+              f"window has closed; the benchmark measures the port alone: "
+              f"no result", file=sys.stderr)
+        return 3
     for line in lines:
         print(line, file=sys.stderr)
     print(json.dumps(result))

@@ -10,6 +10,15 @@ broken underneath (the port's wrappers replaced for the run) must come out
   stale       an interval that returns what the first one returned (a
               result kept across calls), where the state is carried
 
+Where to plant each fault is the cell's traffic's to say, in
+`faults/<traffic>.py`: STEP, the (module, attribute) of the program's
+wrapper whose output is the state a step produces; `unchanged`, its
+stand-in that hands that state back; ANSWER, the wrapper that produces the
+interval's answer; and, where the traffic exchanges between shards,
+EXCHANGE, its stand-in `no_exchange` and EXCHANGE_TRAFFIC, the traffic keys
+under which a shard has a neighbour.  A cell whose traffic brings no such
+file fails test_traffic_brings_its_fault_hooks.
+
 The control, the benchmark's reference in the precision below the one the
 configuration states, must fail a limit where the program passes them all.
 
@@ -18,6 +27,9 @@ configuration states, must fail a limit where the program passes them all.
 
 from __future__ import annotations
 
+import functools
+import importlib
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -29,6 +41,7 @@ from cdkbench.readings import readings
 from cdkbench.tests.test_harness import BENCH, CELLS, cell, tiny
 
 SEED = 2**31 + 7
+FAULTS = Path(__file__).resolve().parent / "faults"
 
 
 def _alter(x: torch.Tensor) -> torch.Tensor:
@@ -37,27 +50,29 @@ def _alter(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _wrappers():
-    """cell -> (module, attribute) of the wrapper whose output is the state
-    a step produces, and a function that returns that state unchanged."""
-    from cdk_torch.kernels.biharmonic import dss2d_rowchain, resident
-    from cdk_torch.kernels.mpdata import masked
-    from cdk_torch.kernels.mpdata import resident as mp_resident
-
-    return {
-        "homme.hv_torus": (dss2d_rowchain, "rowchain_step",
-                           lambda F, w, t, *a, **k: t),
-        "homme.hv_elem": (resident, "bd8_resident", lambda L, q, *a, **k: q),
-        "mmf.slices": (mp_resident, "advect_resident",
-                       lambda f, u, w, rho, rhow, adz, flux, n, **k: (f, flux)),
-        "mmf.xsplit": (masked, "masked_step_xmajor_split",
-                       lambda f_loc, *a, **k: (f_loc, f_loc.new_zeros(
-                           f_loc.shape[0], f_loc.shape[2]))),
-    }
+@functools.cache
+def hooks(traffic):
+    """The fault hooks faults/<traffic>.py, or None where the traffic brings
+    none."""
+    if not (FAULTS / f"{traffic}.py").is_file():
+        return None
+    return run.load("tests/faults", traffic)
 
 
-# the wrapper that produces each cell's answer, for the altered fault
-PRODUCED = {"homme.hv_torus": "rowchain_bridge_out"}
+def hooks_of(name):
+    """The hooks of the cell's traffic; a cell without them fails."""
+    traffic = cell(name)["traffic"]
+    hook = hooks(traffic)
+    if hook is None:
+        pytest.fail(f"cell {name}: its traffic {traffic!r} brings no fault "
+                    f"hooks (cdkbench/tests/faults/{traffic}.py)")
+    return hook
+
+
+def wrapper(where):
+    """(module, attribute) -> (the imported module, attribute)."""
+    module, attr = where
+    return importlib.import_module(module), attr
 
 
 def _run(name, overrides=None):
@@ -72,17 +87,29 @@ def test_sound_run_is_correct(name):
 
 
 @pytest.mark.parametrize("name", CELLS)
+def test_traffic_brings_its_fault_hooks(name):
+    hook = hooks_of(name)
+    wheres = [hook.STEP, hook.ANSWER]
+    if hasattr(hook, "EXCHANGE"):
+        wheres.append(hook.EXCHANGE)
+        assert callable(hook.no_exchange) and hook.EXCHANGE_TRAFFIC
+    for where in wheres:
+        mod, attr = wrapper(where)
+        assert callable(getattr(mod, attr)), where
+    assert callable(hook.unchanged)
+
+
+@pytest.mark.parametrize("name", CELLS)
 def test_state_unchanged_is_caught(name, monkeypatch):
-    mod, attr, same = _wrappers()[name]
-    monkeypatch.setattr(mod, attr, same)
+    hook = hooks_of(name)
+    monkeypatch.setattr(*wrapper(hook.STEP), hook.unchanged)
     res = _run(name)
     assert res["correct"] is False and res["failed"] >= 1
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_altered_answer_is_caught(name, monkeypatch):
-    mod, attr, _ = _wrappers()[name]
-    attr = PRODUCED.get(name, attr)
+    mod, attr = wrapper(hooks_of(name).ANSWER)
     real = getattr(mod, attr)
 
     def altered(*a, **k):
@@ -119,14 +146,18 @@ def test_stale_interval_is_caught(name, monkeypatch):
     assert res["correct"] is False and res["failed"] >= 1
 
 
-def test_exchange_left_out_is_caught(monkeypatch):
-    from cdk_torch.dist import mesh
+def _exchanging():
+    """The cells whose traffic's hooks name an exchange between shards."""
+    return [n for n in CELLS if hasattr(hooks(cell(n)["traffic"]), "EXCHANGE")]
 
-    two = tiny("mmf.xsplit", shards=2)
-    assert _run("mmf.xsplit", two)["correct"] is True
-    monkeypatch.setattr(mesh, "exchange_strips", lambda x, h, out=None: (
-        torch.zeros_like(x[:, :, :h]), torch.zeros_like(x[:, :, :h])))
-    assert _run("mmf.xsplit", two)["correct"] is False
+
+@pytest.mark.parametrize("name", _exchanging())
+def test_exchange_left_out_is_caught(name, monkeypatch):
+    hook = hooks_of(name)
+    shards = tiny(name, **hook.EXCHANGE_TRAFFIC)
+    assert _run(name, shards)["correct"] is True
+    monkeypatch.setattr(*wrapper(hook.EXCHANGE), hook.no_exchange)
+    assert _run(name, shards)["correct"] is False
 
 
 @pytest.mark.parametrize("name", CELLS)
