@@ -13,7 +13,8 @@ intervals of `interval_steps` steps back to back, each ending in
 torch.cuda.synchronize(), for --seconds.  A "carried" traffic starts each
 interval from the state the previous one produced, a "seeded" one from the
 seeded state.  With --trace 1 the window runs under torch.profiler and the
-per-layer metrics are read from the trace.
+per-layer metrics are read from the trace, the program's spans and the
+program's counters (`cdk_torch.core.trace.counts()` before and after it).
 
 CHECKED intervals of the window, drawn from the seed, keep their outputs
 (and, carried, a copy of their inputs); after the window each is held
@@ -240,12 +241,19 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
     if trace:
         from torch.profiler import ProfilerActivity, profile
 
+        from cdk_torch.core.trace import counts
+
+        before = counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, ms = window(path, seconds, clock, keeper, prof)
+        after = counts()
         summary, breakdown = tr.reduce(prof, tr.csrc_kernels(
             ROOT / "cdk_torch" / "csrc"))
         del prof
+        # what the program counted in the traced window
+        summary["counts"] = {k: v - before.get(k, 0) for k, v in after.items()
+                             if v != before.get(k, 0)}
         summary["least_s"] = load("work", family).least(cfg, steps)["least_s"]
     else:
         wall, ms = window(path, seconds, clock, keeper)

@@ -10,6 +10,9 @@ the copy had is still the repository's, runs the new cell with the copy's
 parametrised tests on that cell, among them its planted faults, which must
 make it `correct` false, and the copy's tests of the whole BENCHMARK.json
 over every cell, with a new per-layer metric that lists an existing cell.
+The toy program marks its step with the program's span scheme
+(`cdk_torch.core.trace.span`) and counts it (`count`); two new metric
+files read that span and that counter from a traced run's summary.
 
     python -m pytest cdkbench/tests -q
 """
@@ -30,7 +33,11 @@ CELL = "planted.axpy"
 # the toy program, outside the benchmark as cdk_torch is: one step is a
 # module-level function, looked up at each call, which a fault replaces
 PROGRAM = {"planted_program.py": '''
-    """A toy program: x <- a * x + b, elementwise, chained."""
+    """A toy program: x <- a * x + b, elementwise, chained; each step under
+    the span `cdk.planted` and counted as `planted_calls`, as the port marks
+    and counts its own work."""
+
+    from cdk_torch.core.trace import count, span
 
 
     def axpy(x, a, b):
@@ -39,7 +46,9 @@ PROGRAM = {"planted_program.py": '''
 
     def loop(x, a, b, n):
         for _ in range(n):
-            x = axpy(x, a, b)
+            with span("cdk.planted"):
+                x = axpy(x, a, b)
+            count("planted_calls")
         return x
 '''}
 
@@ -157,6 +166,26 @@ FILES = {
 
         from cdkbench.metrics.interval_ms_mean import read  # noqa: F401
     ''',
+    # metrics of the toy program's own span and counter, read from the
+    # summary's `spans` and `counts`
+    "cdkbench/metrics/planted_us_per_step.py": '''
+        """planted_us_per_step: host time a step under the toy's span
+        `cdk.planted`, in us."""
+
+
+        def read(s):
+            span = s.get("spans", {}).get("cdk.planted")
+            return None if span is None else span["host_s"] / s["steps"] * 1e6
+    ''',
+    "cdkbench/metrics/planted_calls_per_step.py": '''
+        """planted_calls_per_step: the toy's counter `planted_calls` a step."""
+
+
+        def read(s):
+            if "counts" not in s:
+                return None
+            return s["counts"].get("planted_calls", 0) / s["steps"]
+    ''',
     "cdkbench/tests/faults/planted_steps.py": '''
         """Fault hooks of traffic `planted_steps`."""
 
@@ -214,6 +243,13 @@ ENTRIES = {
                   {"name": "interval_ms_mean.planted", "unit": "ms",
                    "better": "lower", "source": "program_span",
                    "layer": "whole step", "moves": "step_us.planted",
+                   "workloads": [CELL]},
+                  {"name": "planted_us_per_step", "unit": "us", "better": "lower",
+                   "source": "program_span", "layer": "the toy's step",
+                   "moves": "step_us.planted", "workloads": [CELL]},
+                  {"name": "planted_calls_per_step", "unit": "1/step",
+                   "better": "lower", "source": "program_counter",
+                   "layer": "the toy's step", "moves": "step_us.planted",
                    "workloads": [CELL]}],
 }
 
@@ -256,11 +292,11 @@ def _whole_cases(bench) -> list:
 
 
 RUN_CELL = f"""
-import json, torch
+import json, sys, torch
 from cdkbench import run
 bench = json.load(open("BENCHMARK.json"))
 res, lines = run.run_cell(run.cell_of({CELL!r}, bench), bench, 2**31 + 11, 0.5,
-                          False, torch.device("cpu"))
+                          sys.argv[1] == "1", torch.device("cpu"))
 print(json.dumps(res))
 """
 
@@ -294,13 +330,22 @@ def _plant(tmp_path) -> dict:
 def test_a_new_family_is_new_files_alone(tmp_path):
     bench = _plant(tmp_path)
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST_")}
-    env["PYTHONPATH"] = str(tmp_path)
-    p = subprocess.run([sys.executable, "-c", RUN_CELL], cwd=tmp_path, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert p.returncode == 0, p.stderr[-3000:]
-    res = json.loads(p.stdout.splitlines()[-1])
-    assert res["correct"] is True and res["failed"] == 0, res
-    assert set(res["metrics"]) == {"setup_s", "step_us.planted"}
+    # the copy first; the repository for cdk_torch, whose spans and
+    # counters the toy program uses
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), str(ROOT)])
+    res = {}
+    for trace in ("0", "1"):
+        p = subprocess.run([sys.executable, "-c", RUN_CELL, trace], cwd=tmp_path,
+                           env=env, capture_output=True, text=True, timeout=120)
+        assert p.returncode == 0, p.stderr[-3000:]
+        res[trace] = json.loads(p.stdout.splitlines()[-1])
+        assert res[trace]["correct"] is True and res[trace]["failed"] == 0, res
+    assert set(res["0"]["metrics"]) == {"setup_s", "step_us.planted"}
+    # the toy's span and counter read by its two new metric files alone:
+    # one call a step, and some host time under the span
+    traced = {k: v["value"] for k, v in res["1"]["metrics"].items()}
+    assert traced["planted_calls_per_step"] == 1.0
+    assert traced["planted_us_per_step"] > 0.0
 
     p = subprocess.run(
         [sys.executable, "-m", "pytest", "cdkbench/tests", "-v",
