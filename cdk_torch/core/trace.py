@@ -33,6 +33,10 @@ plain process-wide counter:
                        result built from the same element fields
                        (`operator.reuse_prepare`); with operator_builds
                        the hit share reuses / (reuses + builds)
+    natural_loads      calls of K1's or K15's wrapper (`bd8_resident`,
+                       `rowchain_bridge_in`) given the state in its own
+                       (e, q, k, i, j) layout, which the kernel then reads
+                       where it lies, with no lane copy before it
 
 `counts()` is a snapshot of both, so a caller reads what a stretch of work
 did as the difference of two snapshots.

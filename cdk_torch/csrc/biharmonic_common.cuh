@@ -95,6 +95,41 @@ __device__ __forceinline__ void apply(const T* op, int lo_off, T v[NPTS]) {
   for (int p = 0; p < NPTS; ++p) v[p] = o[p];
 }
 
+// v <- the NPTS contiguous values at p (16-byte aligned, shared memory) as
+// 16-byte loads: four float4 at f32, eight double2 at f64.  One column of the
+// state's own (e, q, k, i, j) layout, whose 16 points lie together, as
+// stage_columns left it.
+template <typename T>
+__device__ __forceinline__ void load_column(const T* p, T v[NPTS]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < NPTS / 4; ++k) {
+      const float4 x = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = x.x;
+      v[4 * k + 1] = x.y;
+      v[4 * k + 2] = x.z;
+      v[4 * k + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NPTS / 2; ++k) {
+      const double2 x = reinterpret_cast<const double2*>(p)[k];
+      v[2 * k] = x.x;
+      v[2 * k + 1] = x.y;
+    }
+  }
+}
+
+// A column of the state's own layout staged in shared memory takes a row of
+// this many values, its 16 and spare ones, so that a thread a column reading
+// its row with load_column hits distinct banks (a quarter warp's eight 16-byte
+// reads fall on eight distinct 16-byte bank groups: 20 floats, 18 doubles,
+// an odd number of 16-byte units).
+template <typename T>
+__host__ __device__ constexpr int col_stride() {
+  return sizeof(T) == 8 ? 18 : 20;
+}
+
 // Stage operator entry l at plane0[i]: as it is, or (X3) its bf16 hi part
 // there and its lo part at plane0[lo_off + i].
 template <typename T, bool X3>
@@ -287,6 +322,30 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// 16 bytes past the L1, zero filled where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// Copy `tile` columns of the state's own layout from span (16-byte aligned:
+// their tile * NPTS values, together) into dst, column c at dst + c * stride
+// (16-byte aligned rows), in 16-byte pieces: thread `tid` of `nthreads` takes
+// pieces tid, tid + nthreads, ..., so consecutive threads read consecutive
+// pieces.  Columns from `cols` on are zeros and not read.  Commit and wait
+// with cp_async_commit / cp_async_wait.
+template <typename T>
+__device__ __forceinline__ void stage_columns(T* dst, int stride, const T* span, int tile,
+                                              int cols, int tid, int nthreads) {
+  constexpr int PER16 = 16 / sizeof(T), COL16 = NPTS / PER16;
+  for (int k = tid; k < tile * COL16; k += nthreads) {
+    const bool ok = k / COL16 < cols;
+    cp_async16(dst + (k / COL16) * stride + (k % COL16) * PER16, span + (ok ? k * PER16 : 0),
+               ok);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

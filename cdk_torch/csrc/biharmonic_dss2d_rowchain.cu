@@ -65,8 +65,24 @@
 // i-neighbours from the pad rows through pass_of, with the arithmetic of
 // K17, so with the torus's own rows as the pad it equals K17 bit for bit.
 //
+// Layouts.  The step and bridge_out, padded or not, read t in the lane layout
+// (e, 16, ncol), p = 4i + j: a stage row is one point of the warp's 32
+// columns, and the i-neighbours' boundary rows are copied a point at a time.
+// bridge_in reads q so or, with NAT (the wrapper's choice, from the input's
+// shape), in the state's own (e, q, k, i, j) layout, where column c = q*nlev +
+// k of an element is its 16 points together: a warp's tile of 32 columns is
+// one contiguous 2 KB span (4 KB at f64), which the warp copies with cp.async
+// in 16-byte pieces into its stage as it lies, a stage row a column at a
+// padded stride (nat_stride), and turns there as it reads it, the exact and
+// f64 forms a column a thread, the bf16x3 form in fragment order; the halo
+// warps copy their elements the same way.  So the HOMME loop reads the state
+// where it lies, and no copy turns it first.  Every output, t_0 included,
+// stays in the lane layout: the step and bridge_out carry t and read it a
+// point's row at a time, and bridge_out's q is turned back by a view.
+//
 // Bound: at production each launch streams its input in and its output out
-// (2 x 249 MB at f32, 0.149 ms at 3.35 TB/s); the operations, 256 FMAs per
+// (2 x 249 MB at f32 and the preset's qsize 10, 0.149 ms at 3.35 TB/s; four
+// times that at qsize 40); the operations, 256 FMAs per
 // column per element and application (bf16x3: three tensor-core products
 // plus ~80 f32 operations for the splits and sums), take less.  Every step
 // makes one pass through device memory, so depth k saves launches, not
@@ -166,6 +182,15 @@ constexpr int STAGE_STRIDE = TILE + 4;
 constexpr int STAGE_ROWS = NPTS + 2 * NP;
 constexpr int OP_BUF = NPTS * NPTS + NPTS;
 constexpr int WARP_STAGE = STAGE_ROWS * STAGE_STRIDE + 2 * OP_BUF;
+// bridge_in from the state's own layout stages its tile as it lies, a row of
+// the stage a column (its 16 points) and spare values, so a warp's reads hit
+// distinct banks: the exact and f64 forms bih::col_stride (each thread its
+// column as 16-byte reads), bf16x3 24 (the fragment's point pairs as 8-byte
+// reads, a half warp's sixteen over all 32 banks)
+template <typename T, bool X3>
+__host__ __device__ constexpr int nat_stride() {
+  return X3 ? 24 : bih::col_stride<T>();
+}
 
 // Shared memory of the step, in values of T: the warps' stages [SLOTS]
 // [WARP_STAGE] (warp y's is its own), then, where the mode has a j
@@ -193,12 +218,17 @@ struct StepSmem {
 // exchange, through double-buffered side buffers) or, in bridge_out, none;
 // nsteps > 1 only for the step, under a cooperative launch.  A deep launch
 // reads, in later steps, the out and tmp it writes, so no pointer into them
-// is __restrict__, and no copy reaches across the grid sync.
-template <typename T, bool X3, bool SQ, int ELEMS, int MODE>
+// is __restrict__, and no copy reaches across the grid sync.  NAT (bridge_in
+// only): in is the state's own (e, q, k, i, j) layout, a tile's TILE columns
+// of one element one contiguous span, staged as it lies at nat_stride.
+template <typename T, bool X3, bool SQ, int ELEMS, int MODE, bool NAT = false>
 __global__ void __launch_bounds__(TILE * (ELEMS + 2))
 step_kernel(const T* __restrict__ op, const T* __restrict__ w,
             const T* __restrict__ in, T* out, T* tmp, Torus g, int nsteps) {
   using S = StepSmem<T, X3, ELEMS, MODE>;
+  constexpr int NS = nat_stride<T, X3>();
+  static_assert(!NAT || (MODE == BRIDGE_IN && TILE * NS <= STAGE_ROWS * STAGE_STRIDE),
+                "the natural stage is bridge_in's and fits in the warp's stage rows");
   constexpr int OWN = owned_elems<MODE, ELEMS>();
   constexpr int FIRST = MODE == BRIDGE_OUT ? 0 : 1;  // the first owned slot
   constexpr bool IPASS = MODE != BRIDGE_IN;  // i-neighbours' rows, times w
@@ -234,11 +264,18 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
       const int c = ct * TILE + lane;
       const bool live = c < g.ncol;
       const int cc = live ? c : 0;
-      const T* own = ps.src + ((size_t)a * g.ey + b) * NPTS * g.ncol + cc;
+      if constexpr (NAT) {
+        // the tile's columns of element (a, b): one contiguous span
+        bih::stage_columns(stage, NS,
+                           ps.src + (((size_t)a * g.ey + b) * g.ncol + ct * TILE) * NPTS,
+                           TILE, g.ncol - ct * TILE, lane, TILE);
+      } else {
+        const T* own = ps.src + ((size_t)a * g.ey + b) * NPTS * g.ncol + cc;
 #pragma unroll
-      for (int p = 0; p < NPTS; ++p)
-        bih::cp_async<sizeof(T)>(stage + p * STAGE_STRIDE + lane, own + (size_t)p * g.ncol,
-                                 live);
+        for (int p = 0; p < NPTS; ++p)
+          bih::cp_async<sizeof(T)>(stage + p * STAGE_STRIDE + lane,
+                                   own + (size_t)p * g.ncol, live);
+      }
       if constexpr (IPASS) {
         int au, ad;
         ineighbours(a, g, au, ad);
@@ -285,23 +322,39 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
         constexpr int MT = TILE / bih::tc::MCOLS;
         const int gq = lane >> 2, t = lane & 3;
         float x[MT][8];
-        // d = ipass(t) * w: lanes t < 2 hold i = 0 points (q = 0, 1) and add
-        // the row above's i = np-1 points; t >= 2 hold i = np-1 points (q =
-        // 2, 3) and add the row below's i = 0 points
+        if constexpr (NAT) {
+          // the points pt(t, q) of column 16m + 8r + gq: pairs 2t + 8h, 2t
+          // + 8h + 1 (q = 2h, 2h + 1) as 8-byte reads from its stage row
 #pragma unroll
-        for (int m = 0; m < MT; ++m)
+          for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const int p = pt(t, k & 3), col = 16 * m + 8 * (k >> 2) + gq;
-            float v = stage[p * STAGE_STRIDE + col];
-            if constexpr (IPASS) {
-              if ((t < 2) == ((k & 3) < 2))
-                v += stage[(t < 2 ? NPTS + p : NPTS + NP + p - (NPTS - NP)) * STAGE_STRIDE
-                           + col];
-              v *= wc[p];
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float2 v = *reinterpret_cast<const float2*>(
+                    stage + (16 * m + 8 * r + gq) * NS + 2 * t + 8 * h);
+                x[m][4 * r + 2 * h] = v.x;
+                x[m][4 * r + 2 * h + 1] = v.y;
+              }
+        } else {
+          // d = ipass(t) * w: lanes t < 2 hold i = 0 points (q = 0, 1) and add
+          // the row above's i = np-1 points; t >= 2 hold i = np-1 points (q =
+          // 2, 3) and add the row below's i = 0 points
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const int p = pt(t, k & 3), col = 16 * m + 8 * (k >> 2) + gq;
+              float v = stage[p * STAGE_STRIDE + col];
+              if constexpr (IPASS) {
+                if ((t < 2) == ((k & 3) < 2))
+                  v += stage[(t < 2 ? NPTS + p : NPTS + NP + p - (NPTS - NP)) * STAGE_STRIDE
+                             + col];
+                v *= wc[p];
+              }
+              x[m][k] = v;
             }
-            x[m][k] = v;
-          }
+        }
         const bih::tc::Op F = bih::tc::load_op(opc);
         __syncwarp();  // every lane has read the stage before it is refilled
         prefetch(tile + gridDim.x, buf ^ 1);
@@ -338,8 +391,12 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
         // d = ipass(t) * w: the i = 0 points gain the row above's, then the
         // i = np-1 points the row below's, as the plain version sums
         T u[NPTS];
+        if constexpr (NAT) {
+          bih::load_column(stage + lane * NS, u);
+        } else {
 #pragma unroll
-        for (int p = 0; p < NPTS; ++p) u[p] = stage[p * STAGE_STRIDE + lane];
+          for (int p = 0; p < NPTS; ++p) u[p] = stage[p * STAGE_STRIDE + lane];
+        }
         if constexpr (IPASS) {
 #pragma unroll
           for (int j = 0; j < NP; ++j) {
@@ -387,10 +444,10 @@ step_kernel(const T* __restrict__ op, const T* __restrict__ w,
   }
 }
 
-template <typename T, bool X3, bool SQ, int ELEMS, int MODE>
+template <typename T, bool X3, bool SQ, int ELEMS, int MODE, bool NAT = false>
 int launch_step(const T* op, const T* w, const T* in, T* out, T* tmp, Torus g,
                 int nsteps, cudaStream_t st) {
-  auto kern = step_kernel<T, X3, SQ, ELEMS, MODE>;
+  auto kern = step_kernel<T, X3, SQ, ELEMS, MODE, NAT>;
   constexpr size_t smem = StepSmem<T, X3, ELEMS, MODE>::BYTES;
   constexpr int THREADS = TILE * (ELEMS + 2);
   constexpr int OWN = owned_elems<MODE, ELEMS>();
@@ -424,10 +481,11 @@ int launch_step(const T* op, const T* w, const T* in, T* out, T* tmp, Torus g,
 template <typename T, bool X3>
 int dispatch(int mode, int sq, const void* op, const void* w, const void* in,
              void* out, void* tmp, int ex, int ey, int ncol, int nsteps,
-             int pad, int out_pad, void* stream) {
+             int pad, int out_pad, int natural, void* stream) {
   if (ex < 1 || ey < 1 || ncol < 1 || nsteps < 1 || (mode != STEP && nsteps != 1)
       || (nsteps > 1 && tmp == nullptr) || pad < 0
-      || (pad > 0 && (mode == BRIDGE_IN || pad != nsteps || (nsteps > 1 && !out_pad))))
+      || (pad > 0 && (mode == BRIDGE_IN || pad != nsteps || (nsteps > 1 && !out_pad)))
+      || (natural && mode != BRIDGE_IN))
     return static_cast<int>(cudaErrorInvalidValue);
   const Torus g{ex, ey, ncol, pad, pad > 0 && out_pad};
   const T* op_ = static_cast<const T*>(op);
@@ -442,7 +500,10 @@ int dispatch(int mode, int sq, const void* op, const void* w, const void* in,
       return sq ? launch_step<T, X3, true, E, STEP>(op_, w_, in_, out_, tmp_, g, nsteps, st)
                 : launch_step<T, X3, false, E, STEP>(op_, w_, in_, out_, tmp_, g, nsteps, st);
     case BRIDGE_IN:
-      return launch_step<T, X3, false, E, BRIDGE_IN>(op_, w_, in_, out_, tmp_, g, 1, st);
+      return natural
+                 ? launch_step<T, X3, false, E, BRIDGE_IN, true>(op_, w_, in_, out_, tmp_, g,
+                                                                 1, st)
+                 : launch_step<T, X3, false, E, BRIDGE_IN>(op_, w_, in_, out_, tmp_, g, 1, st);
     case BRIDGE_OUT:
       return launch_step<T, X3, false, step_elems<T, X3, BRIDGE_OUT>(), BRIDGE_OUT>(
           op_, w_, in_, out_, tmp_, g, 1, st);
@@ -463,23 +524,25 @@ extern "C" {
 // pad > 0 (step and bridge_out, pad == nsteps) is the padded mode on ex
 // owned rows: in and tmp ((ex+2*pad)*ey,16,ncol), op and w
 // ((ex+2*pad-2)*ey, ...), out ((ex+2*pad)*ey,16,ncol) with out_pad (needed
-// when nsteps > 1), else (ex*ey,16,ncol).  Returns the launch's CUDA error
-// code.
+// when nsteps > 1), else (ex*ey,16,ncol).  natural (bridge_in only): in is
+// the state's own (ex*ey,q,k,4,4) with ncol = q*k, 16-byte aligned.  Returns
+// the launch's CUDA error code.
 int cdk_rowchain_f32(int mode, const void* op, const void* w, const void* in,
                      void* out, void* tmp, int ex, int ey, int ncol,
-                     int nsteps, int pad, int out_pad, int x3, int sq,
-                     void* stream) {
+                     int nsteps, int pad, int out_pad, int natural, int x3,
+                     int sq, void* stream) {
   return x3 ? dispatch<float, true>(mode, sq, op, w, in, out, tmp, ex, ey, ncol, nsteps,
-                                    pad, out_pad, stream)
+                                    pad, out_pad, natural, stream)
             : dispatch<float, false>(mode, sq, op, w, in, out, tmp, ex, ey, ncol, nsteps,
-                                     pad, out_pad, stream);
+                                     pad, out_pad, natural, stream);
 }
 
 int cdk_rowchain_f64(int mode, const void* op, const void* w, const void* in,
                      void* out, void* tmp, int ex, int ey, int ncol,
-                     int nsteps, int pad, int out_pad, int sq, void* stream) {
+                     int nsteps, int pad, int out_pad, int natural, int sq,
+                     void* stream) {
   return dispatch<double, false>(mode, sq, op, w, in, out, tmp, ex, ey, ncol,
-                                 nsteps, pad, out_pad, stream);
+                                 nsteps, pad, out_pad, natural, stream);
 }
 
 }  // extern "C"

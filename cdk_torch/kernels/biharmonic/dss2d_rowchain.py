@@ -25,7 +25,12 @@ bit for bit.  Beside them here:
 the plain PyTorch version of each (the CPU path, and what the kernels are
 compared with on the card) and the three wrappers, each with a launch
 counter; `rowchain_step.depth_launches` also counts the step's launches by
-depth.  `step` is bridge-in then bridge-out; `loop(data, n)` is bridge-in,
+depth.  `rowchain_bridge_in` takes q in either layout and chooses the
+kernel's load from its shape: a 3-D (e, 16, ncol) tensor is the lane
+layout, a contiguous 5-D (e, q, k, 4, 4) tensor the state's own layout,
+which the kernel reads where it lies (`count("natural_loads")`); t is the
+lane layout either way, as the step and bridge-out carry it.  `step` is
+bridge-in then bridge-out; `loop(data, n)` is bridge-in,
 n-1 t-steps in launches of `loop_depth` steps and one for the remainder,
 then bridge-out.  The TPU's window geometry, VMEM budgets, the ±13/±12-row
 shift masks and the `CDK_DSS2D*`/`CDK_ROWCHAIN_KMAX` hooks are not ported.
@@ -51,7 +56,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
-from cdk_torch.core.trace import counted
+from cdk_torch.core.trace import count, counted
 from cdk_torch.kernels.biharmonic.dss2d import (
     _edge_pair_sum,
     dss2d_weights,
@@ -66,7 +71,8 @@ from cdk_torch.kernels.biharmonic.operator import (
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
     from_lane_layout,
-    to_lane_layout,
+    lane_of,
+    lane_shape,
 )
 from cdk_torch.kernels.biharmonic.reference import rrearth_as
 
@@ -118,7 +124,9 @@ def _ipass_w(t: torch.Tensor, w: torch.Tensor, ex: int, ey: int) -> torch.Tensor
 
 
 def rowchain_bridge_in_plain(L, q_lane, ex, ey, precision="highest"):
-    return _jpass(apply_operator(L, q_lane, _prec(precision)), ex, ey)
+    """q_lane (e, 16, ncol), or the state's own (e, q, k, 4, 4), turned
+    first."""
+    return _jpass(apply_operator(L, lane_of(q_lane), _prec(precision)), ex, ey)
 
 
 def rowchain_step_plain(F, w, t, ex, ey, nsteps=1, precision="highest",
@@ -176,7 +184,7 @@ def rowchain_bridge_out_padded_plain(L, w, tp, ex, ey, precision="highest"):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library()
-    head = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    head = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     lib.cdk_rowchain_f32.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.cdk_rowchain_f64.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p]
     lib.cdk_rowchain_f32.restype = ctypes.c_int
@@ -184,9 +192,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(op, w, x, ex, ey, precision, pad=0):
+def _check(op, w, x, ex, ey, precision, pad=0, shape=None):
     """pad > 0: the padded mode, x with pad more rows per side and op/w
-    with pad - 1."""
+    with pad - 1.  shape: x's (e, 16, ncol), where x is not that tensor."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     ts = [op, x] + ([] if w is None else [w])
@@ -199,7 +207,8 @@ def _check(op, w, x, ex, ey, precision, pad=0):
         raise ValueError("operator, w and field must lie on one device")
     e = (ex + 2 * pad) * ey
     eo = (ex + 2 * pad - 2 if pad else ex) * ey
-    if (x.dim() != 3 or x.shape[:2] != (e, NPTS) or op.shape != (eo, NPTS, NPTS)
+    shape = tuple(x.shape) if shape is None else shape
+    if (len(shape) != 3 or shape[:2] != (e, NPTS) or op.shape != (eo, NPTS, NPTS)
             or (w is not None and w.shape != (eo, NPTS))):
         where = f" padded by {pad} rows" if pad else ""
         raise ValueError(f"want an ({ex}x{ey}) torus{where}: operator "
@@ -218,7 +227,11 @@ def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what, pad=0,
     if any(t is not None and t.data_ptr() % 16 for t in (op, w)):
         raise ValueError(f"{what} copies the operator and w in 16-byte pieces: "
                          "they must start 16-byte aligned")
-    ncol = x.shape[2]
+    natural = x.dim() == 5
+    if natural and x.data_ptr() % 16:
+        raise ValueError(f"{what} copies the state's own layout in 16-byte "
+                         "pieces: it must start 16-byte aligned")
+    ncol = lane_shape(x)[2]
     if out is None:
         out = torch.empty((ex * ey, NPTS, ncol), dtype=x.dtype, device=x.device)
     if tmp is None and nsteps > 1:
@@ -229,7 +242,7 @@ def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what, pad=0,
         args = (mode, op.data_ptr(), None if w is None else w.data_ptr(),
                 x.data_ptr(), out.data_ptr(),
                 None if tmp is None else tmp.data_ptr(), ex, ey, ncol, nsteps,
-                pad, out_pad)
+                pad, out_pad, int(natural))
         if x.dtype == torch.float32:
             err = _lib().cdk_rowchain_f32(*args, int(precision == "bf16x3"),
                                           int(squared), stream)
@@ -241,9 +254,13 @@ def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what, pad=0,
 
 @counted
 def rowchain_bridge_in(L, q_lane, ex, ey, precision="highest"):
-    """t_0 = jpass(A q).  CUDA tensors launch the kernel (never anything
-    else); CPU tensors run the plain version."""
-    _check(L, None, q_lane, ex, ey, precision)
+    """t_0 = jpass(A q), q (e, 16, ncol) or the state's own contiguous (e,
+    q, k, 4, 4), which the kernel reads where it lies; -> t_0 (e, 16,
+    ncol).  CUDA tensors launch the kernel (never anything else); CPU
+    tensors run the plain version."""
+    _check(L, None, q_lane, ex, ey, precision, shape=lane_shape(q_lane))
+    if q_lane.dim() == 5:
+        count("natural_loads")
     if q_lane.device.type == "cpu":
         return rowchain_bridge_in_plain(L, q_lane, ex, ey, precision)
     out = _launch(BRIDGE_IN, L, None, q_lane, ex, ey, 1, precision, False,
@@ -363,7 +380,8 @@ def _rowchain_forms(cfg, precision: str, precomposed: bool = False):
 
     def step(aux, data: BiharmonicData) -> torch.Tensor:
         L, w, _ = aux
-        t = rowchain_bridge_in(L, to_lane_layout(data.qtens), ex, ey, precision)
+        # K15 reads the state where it lies (no lane copy)
+        t = rowchain_bridge_in(L, data.qtens.contiguous(), ex, ey, precision)
         return from_lane_layout(
             rowchain_bridge_out(L, w, t, ex, ey, precision), cfg)
 
@@ -373,7 +391,7 @@ def _rowchain_forms(cfg, precision: str, precomposed: bool = False):
         if n < 1:
             raise ValueError(f"the rowchain loop takes n >= 1 steps (got {n})")
         L, w, F = prepare(data)
-        t = rowchain_bridge_in(L, to_lane_layout(data.qtens), ex, ey, precision)
+        t = rowchain_bridge_in(L, data.qtens.contiguous(), ex, ey, precision)
         nt = n - 1
         while nt > 0:
             k = min(depth, nt)

@@ -115,9 +115,33 @@ def _init_data_device(cfg: BiharmonicConfig,
 def to_lane_layout(qtens: torch.Tensor) -> torch.Tensor:
     """(e, q, k, i, j) -> contiguous (e, npts, ncol): GLL points in rows,
     the fused (q, k) batch innermost."""
-    e, q, k, n, _ = qtens.shape
     with span("cdk.layout"):
-        return qtens.reshape(e, q * k, n * n).transpose(1, 2).contiguous()
+        return lane_of(qtens)
+
+
+def lane_of(q: torch.Tensor) -> torch.Tensor:
+    """A kernel input in the lane layout: a 3-D (e, npts, ncol) tensor as
+    it is, the state's own (e, q, k, i, j) turned into a contiguous copy
+    (to_lane_layout without its span; the plain versions of the kernels
+    that read the state where it lies)."""
+    if q.dim() != 5:
+        return q
+    e, nq, k, n, _ = q.shape
+    return q.reshape(e, nq * k, n * n).transpose(1, 2).contiguous()
+
+
+def lane_shape(q: torch.Tensor) -> tuple:
+    """(e, npts, ncol) of a kernel input: a lane-layout tensor's shape, or
+    that of the state's own (e, q, k, np, np) layout, which K1 and K15 read
+    where it lies and which must then be contiguous (ValueError).  Any
+    other shape comes back as it is, for the caller's check to refuse."""
+    if q.dim() != 5 or q.shape[3] != q.shape[4]:
+        return tuple(q.shape)
+    if not q.is_contiguous():
+        raise ValueError("the state's own (e, q, k, np, np) layout is read "
+                         "where it lies: it must be contiguous")
+    e, nq, k, n, _ = q.shape
+    return e, n * n, nq * k
 
 
 def from_lane_layout(q_lane: torch.Tensor, cfg: BiharmonicConfig) -> torch.Tensor:

@@ -22,6 +22,13 @@ and what the card's kernel is compared with), and the wrappers
 CUDA tensors and run the plain version for CPU tensors.  The plain version
 runs its matrix products with TF32 off (`exact_fp32`), so "highest" means
 true f32 on the card.
+
+`bd8_resident` takes q in either layout and chooses the kernel's load
+from its shape: a 3-D (e, 16, ncol) tensor is the lane layout, a
+contiguous 5-D (e, q, k, 4, 4) tensor the state's own layout, which the
+kernel reads where it lies (`count("natural_loads")`), so the resident
+forms' loops pass `data.qtens` and make no lane copy.  The output is the
+lane layout either way.  K5 takes the lane layout only.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
-from cdk_torch.core.trace import counted
+from cdk_torch.core.trace import count, counted
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     element_operator,
@@ -42,6 +49,8 @@ from cdk_torch.kernels.biharmonic.operator import (
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
     from_lane_layout,
+    lane_of,
+    lane_shape,
     to_lane_layout,
 )
 from cdk_torch.kernels.biharmonic.reference import rrearth_as
@@ -53,10 +62,11 @@ PRECISIONS = ("highest", "bf16x3")
 def bd8_resident_plain(L: torch.Tensor, q_lane: torch.Tensor, n: int,
                        precision: str = "highest") -> torch.Tensor:
     """n chained batched products q <- L @ q.  L: (e, 16, 16), q_lane:
-    (e, 16, ncol).  "bf16x3" forms each product from bf16-valued hi/lo
-    parts (exact products, f32 sums), as the TPU kernel's manual split
+    (e, 16, ncol), or the state's own (e, q, k, 4, 4), turned first.
+    "bf16x3" forms each product from bf16-valued hi/lo parts (exact
+    products, f32 sums), as the TPU kernel's manual split
     (`apply_operator`'s "high")."""
-    q = q_lane
+    q = lane_of(q_lane)
     for _ in range(n):
         q = apply_operator(L, q, "high" if precision == "bf16x3" else "highest")
     return q
@@ -66,15 +76,17 @@ def bd8_resident_plain(L: torch.Tensor, q_lane: torch.Tensor, n: int,
 def _lib() -> ctypes.CDLL:
     lib = build.library()
     lib.cdk_bd8_resident_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.cdk_bd8_resident_f64.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.cdk_bd8_resident_f32.restype = ctypes.c_int
     lib.cdk_bd8_resident_f64.restype = ctypes.c_int
     return lib
 
 
-def _validate(L, q_lane, n, precision):
+def _validate(L, q_lane, n, precision) -> bool:
+    """Refuse what the kernel cannot run; True where q_lane is the state's
+    own layout."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     if n < 0:
@@ -86,28 +98,35 @@ def _validate(L, q_lane, n, precision):
         raise TypeError("bf16x3 is a float32 form")
     if L.device != q_lane.device:
         raise ValueError(f"L on {L.device}, q_lane on {q_lane.device}")
-    e = q_lane.shape[0]
-    if q_lane.dim() != 3 or q_lane.shape[1] != NPTS or L.shape != (e, NPTS, NPTS):
-        raise ValueError(f"want L (e,{NPTS},{NPTS}) and q_lane (e,{NPTS},ncol); "
-                         f"got {tuple(L.shape)}, {tuple(q_lane.shape)}")
+    shape = lane_shape(q_lane)
+    e = shape[0]
+    if len(shape) != 3 or shape[1] != NPTS or L.shape != (e, NPTS, NPTS):
+        raise ValueError(f"want L (e,{NPTS},{NPTS}) and q (e,{NPTS},ncol) or "
+                         f"(e,q,k,4,4); got {tuple(L.shape)}, "
+                         f"{tuple(q_lane.shape)}")
+    return q_lane.dim() == 5
 
 
 def _launch(L: torch.Tensor, q_lane: torch.Tensor, n: int,
             precision: str) -> torch.Tensor:
     if not (L.is_contiguous() and q_lane.is_contiguous()):
         raise ValueError("the operator kernel needs contiguous L and q_lane")
-    e, _, ncol = q_lane.shape
-    out = torch.empty_like(q_lane)
+    natural = q_lane.dim() == 5
+    if natural and q_lane.data_ptr() % 16:
+        raise ValueError("the operator kernel reads the state's own layout "
+                         "in 16-byte pieces: it must start 16-byte aligned")
+    e, _, ncol = lane_shape(q_lane)
+    out = torch.empty((e, NPTS, ncol), dtype=q_lane.dtype, device=q_lane.device)
     stream = torch.cuda.current_stream(q_lane.device).cuda_stream
     with torch.cuda.device(q_lane.device):
         if q_lane.dtype == torch.float32:
             err = _lib().cdk_bd8_resident_f32(
                 L.data_ptr(), q_lane.data_ptr(), out.data_ptr(), e, ncol, n,
-                int(precision == "bf16x3"), stream)
+                int(precision == "bf16x3"), int(natural), stream)
         else:
             err = _lib().cdk_bd8_resident_f64(
                 L.data_ptr(), q_lane.data_ptr(), out.data_ptr(), e, ncol, n,
-                stream)
+                int(natural), stream)
     build.check(err, "biharmonic_resident")
     return out
 
@@ -115,9 +134,12 @@ def _launch(L: torch.Tensor, q_lane: torch.Tensor, n: int,
 @counted
 def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
                  precision: str = "highest") -> torch.Tensor:
-    """K1: run n chained applications.  CUDA tensors launch the kernel
-    (never anything else); CPU tensors run bd8_resident_plain."""
-    _validate(L, q_lane, n, precision)
+    """K1: run n chained applications to q_lane, (e, 16, ncol) or the
+    state's own contiguous (e, q, k, 4, 4), which the kernel reads where it
+    lies; -> (e, 16, ncol).  CUDA tensors launch the kernel (never anything
+    else); CPU tensors run bd8_resident_plain."""
+    if _validate(L, q_lane, n, precision):
+        count("natural_loads")
     if q_lane.device.type == "cpu":
         return bd8_resident_plain(L, q_lane, n, precision)
     out = _launch(L, q_lane, n, precision)
@@ -130,7 +152,8 @@ def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
 def apply_operator_pallas(L: torch.Tensor, q_lane: torch.Tensor) -> torch.Tensor:
     """K5: out[e] = L[e] @ q_lane[e], exact products, one launch of the
     operator kernel at n = 1 (CPU tensors: the exact batched product)."""
-    _validate(L, q_lane, 1, "highest")
+    if _validate(L, q_lane, 1, "highest"):
+        raise ValueError(f"K5 takes the lane layout (e,{NPTS},ncol)")
     if q_lane.device.type == "cpu":
         return bd8_resident_plain(L, q_lane, 1)
     out = _launch(L, q_lane, 1, "highest")
@@ -177,7 +200,8 @@ def _bd8_resident_forms(cfg, precision: str):
         return (element_operator(data, rr),)
 
     def _run(L, qtens, n):
-        out = bd8_resident(L, to_lane_layout(qtens), n, precision)
+        # the kernel reads the state where it lies (no lane copy)
+        out = bd8_resident(L, qtens.contiguous(), n, precision)
         return from_lane_layout(out, cfg)
 
     def step(aux, data: BiharmonicData) -> torch.Tensor:
@@ -185,8 +209,8 @@ def _bd8_resident_forms(cfg, precision: str):
         return _run(L, data.qtens, 1)
 
     def loop(data: BiharmonicData, n: int) -> torch.Tensor:
-        """n applications in one launch (the timed path); the layout
-        changes once at each end, not per step."""
+        """n applications in one launch (the timed path), reading the
+        state's own layout; the output is a view of the lane layout."""
         (L,) = prepare(data)
         return _run(L, data.qtens, n)
 

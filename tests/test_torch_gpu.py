@@ -6,9 +6,10 @@ small and odd rings and tori (the tensor-core bf16x3 forms of K14 and the
 rowchain step also at ragged m-tiles and across the step's row tiles), K4,
 K5, the staged MPDATA kernel behind K6, K7 and K8, K9 and K10, the
 masked-global MPDATA kernel behind K20-K25, the window-fed K14 and the
-padded rowchain modes K16p-K18p of the decomposed DSS families), the
-shared-memory refusals, and the driver's and the dist forms' paths through
-the kernels.  They skip without a CUDA card.
+padded rowchain modes K16p-K18p of the decomposed DSS families), K1 and
+K15 reading the state's own (e, q, k, i, j) layout bit for bit as they
+read its lane copy, the shared-memory refusals, and the driver's and the
+dist forms' paths through the kernels.  They skip without a CUDA card.
 
 This file imports no jax, so it runs where the card is (no JAX there):
 
@@ -1098,3 +1099,145 @@ def test_dist_biharmonic_runs_through_the_kernels(cuda):
     for name, got in runs["cuda"].items():
         assert rel_l2(got, runs["cpu"][name]) < 1e-13, name
     assert torch.equal(runs["cuda"]["rowchain"], runs["cuda"]["overlap"])
+
+
+# ---- K1 and K15 reading the state's own (e, q, k, i, j) layout
+
+# ncol -> (qsize, nlev) of a state with that many columns
+NATURAL_COLS = {1: (1, 1), 8: (2, 4), 31: (1, 31), 33: (3, 11), 40: (5, 8),
+                129: (3, 43), 2880: (40, 72)}
+NATURAL_FORMS = [(torch.float32, "highest"), (torch.float32, "bf16x3"),
+                 (torch.float64, "highest")]
+
+
+def _natural_loads():
+    return trace.counts().get("natural_loads", 0)
+
+
+def _state(e, ncol, seed):
+    """A float64 state (e, qsize, nlev, 4, 4) with qsize * nlev = ncol."""
+    nq, nlev = NATURAL_COLS[ncol]
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((e, nq, nlev, 4, 4)))
+
+
+@pytest.mark.parametrize("ncol", [1, 31, 33, 129, 2880])
+def test_bd8_natural_load_equals_the_lane_load(cuda, ncol):
+    """K1 reading the state where it lies gives bit for bit what it gives
+    from the lane copy, every form, n of 1 and 6, ragged column tiles
+    (ncol 1, 31, 33, 129) and the cells' 2880; one natural load counted a
+    natural call."""
+    L64, _, _ = _dss_operands(7, 1, ncol)
+    q64 = _state(7, ncol, ncol)
+    for dtype, prec in NATURAL_FORMS:
+        L, q = L64.to(cuda, dtype), q64.to(cuda, dtype)
+        for n in (1, 6):
+            before, launches = _natural_loads(), bres.bd8_resident.launches
+            got = bres.bd8_resident(L, q, n, prec)
+            want = bres.bd8_resident(L, bproblem.to_lane_layout(q), n, prec)
+            torch.cuda.synchronize()
+            assert (_natural_loads(), bres.bd8_resident.launches) == (
+                before + 1, launches + 2)
+            assert torch.equal(got, want), (dtype, prec, n)
+
+
+@pytest.mark.parametrize("exy,ncol", [((4, 4), 40), ((4, 3), 8), ((16, 10), 33),
+                                      ((2, 2), 8), ((3, 9), 40), ((3, 1), 33),
+                                      ((2, 72), 33)])
+def test_rowchain_bridge_in_natural_load_equals_the_lane_load(cuda, exy, ncol):
+    """K15 reading the state where it lies (its tile's span staged as it
+    lies, turned in shared memory) gives bit for bit what it gives from the
+    lane copy, every form, on the tori of test_rowchain_kernels_match_plain;
+    one natural load counted a natural call."""
+    ex, ey = exy
+    L64, _, _ = _dss_operands(ex * ey, 1, ex * 100 + ey)
+    q64 = _state(ex * ey, ncol, ex + ey)
+    for dtype, prec in NATURAL_FORMS:
+        L, q = L64.to(cuda, dtype), q64.to(cuda, dtype)
+        before, launches = _natural_loads(), rc.rowchain_bridge_in.launches
+        got = rc.rowchain_bridge_in(L, q, ex, ey, prec)
+        want = rc.rowchain_bridge_in(L, bproblem.to_lane_layout(q), ex, ey, prec)
+        torch.cuda.synchronize()
+        assert (_natural_loads(), rc.rowchain_bridge_in.launches) == (
+            before + 1, launches + 2)
+        assert torch.equal(got, want), (dtype, prec)
+
+
+def test_natural_load_refuses_a_misaligned_state(cuda):
+    """K1 and K15 copy the state in 16-byte pieces: a state that starts off
+    16-byte alignment is refused before the launch."""
+    ex, ey = 3, 2
+    L64, _, _ = _dss_operands(ex * ey, 1, 4)
+    L = L64.to(cuda, torch.float32)
+    q = _state(ex * ey, 8, 4).to(cuda, torch.float32)
+    qx = torch.empty(q.numel() + 1, device=cuda)[1:].view_as(q).copy_(q)
+    launches = (bres.bd8_resident.launches, rc.rowchain_bridge_in.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        bres.bd8_resident(L, qx, 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        rc.rowchain_bridge_in(L, qx, ex, ey)
+    assert (bres.bd8_resident.launches, rc.rowchain_bridge_in.launches) == launches
+
+
+def _lane_loop(name, cfg, aux, qtens, n):
+    """The loop of a natural-load variant as it ran before its kernels read
+    the state where it lies: to_lane_layout, the lane-layout launches,
+    from_lane_layout."""
+    prec = "bf16x3" if name.endswith("x3") else "highest"
+    q = bproblem.to_lane_layout(qtens)
+    if "rowchain" not in name:
+        return bproblem.from_lane_layout(bres.bd8_resident(aux[0], q, n, prec), cfg)
+    L, w, F = aux
+    ex, ey = rc.torus_shape(cfg.nelemd)
+    t = rc.rowchain_bridge_in(L, q, ex, ey, prec)
+    nt = n - 1
+    while nt > 0:
+        k = min(rc.loop_depth(prec, "_sq" in name), nt)
+        t = rc.rowchain_step(F, w, t, ex, ey, k, prec, "_sq" in name)
+        nt -= k
+    return bproblem.from_lane_layout(rc.rowchain_bridge_out(L, w, t, ex, ey, prec),
+                                     cfg)
+
+
+@pytest.mark.parametrize("family,name,wrapper", [
+    ("biharmonic", "fused_operator_bd8_resident", bres.bd8_resident),
+    ("biharmonic", "fused_operator_bd8_resident_x3", bres.bd8_resident),
+    ("biharmonic_dss2d", "fused_operator_rowchain", rc.rowchain_bridge_in),
+    ("biharmonic_dss2d", "fused_operator_rowchain_sq_x3", rc.rowchain_bridge_in)])
+def test_homme_loop_reads_the_state_where_it_lies_on_the_card(cuda, family, name,
+                                                               wrapper):
+    """A HOMME loop on the card equals from_lane_layout(its kernels on
+    to_lane_layout(qtens)) bit for bit, leaves qtens unchanged, counts one
+    natural load and launches its first kernel once."""
+    cfg = with_overrides(BiharmonicConfig(), nelemd=16, nlev=4, qsize=10,
+                         dtype="float32", rrearth=0.1)
+    data = bproblem.init_data(cfg).to(cuda)
+    _, aux, loop = registry._materialize(registry.get(family, name), cfg, data)
+    kept = data.qtens.clone()
+    want = _lane_loop(name, cfg, aux, data.qtens, 6)
+    before, launches = _natural_loads(), wrapper.launches
+    got = loop(data, 6)
+    torch.cuda.synchronize()
+    assert (_natural_loads(), wrapper.launches) == (before + 1, launches + 1)
+    assert torch.equal(data.qtens, kept)
+    assert got.abs().min() > 0
+    assert torch.equal(got, want)
+
+
+def test_k5_and_the_dist_torus_keep_the_lane_load(cuda):
+    """fused_operator_pallas chains K5 on a lane copy, and the dist torus
+    hands K15 lane shards: both launch, and natural_loads does not move."""
+    cfg = with_overrides(BiharmonicConfig(), nelemd=16, nlev=4, qsize=2,
+                         dtype="float32", rrearth=0.1)
+    data = bproblem.init_data(cfg).to(cuda)
+    _, _, loop = registry._materialize(
+        registry.get("biharmonic", "fused_operator_pallas"), cfg, data)
+    before = _natural_loads()
+    launches = (bres.apply_operator_pallas.launches, rc.rowchain_bridge_in.launches)
+    loop(data, 2)
+    si, dloop, gather = dbi.make_dist_loop_dss2d_rowchain(cfg, dmesh.make_mesh(2, cuda))
+    gather(dloop(*si(bproblem.init_data(cfg)), 3))
+    torch.cuda.synchronize()
+    assert _natural_loads() == before
+    assert bres.apply_operator_pallas.launches == launches[0] + 2
+    assert rc.rowchain_bridge_in.launches > launches[1]
