@@ -67,6 +67,21 @@ def kernels() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def forms(prepare, run) -> dict:
+    """The dict form of a variant (see `_materialize`) from its set-up
+    `prepare(data)` and `run(aux, data, n)`, n steps from that set-up:
+    `step(aux, data)` is one step and `loop(data, n)` prepares, then runs
+    n steps."""
+
+    def step(aux, data):
+        return run(aux, data, 1)
+
+    def loop(data, n: int):
+        return run(prepare(data), data, n)
+
+    return {"prepare": prepare, "step": step, "loop": loop}
+
+
 def _materialize(variant: "Variant", cfg, data):
     """-> (step2, aux, loop_or_None) with the canonical call form
     step2(aux, data).
@@ -81,7 +96,8 @@ def _materialize(variant: "Variant", cfg, data):
                                   — `loop(data, n)` runs n steps with state
                                     kept in the variant's resident layout
                                     (the reference's `do n=1,nIters` over
-                                    device-resident data, nested.F90:191-199)
+                                    device-resident data, nested.F90:191-199);
+                                    `forms` makes it from prepare and run
     """
     made = variant.fn(cfg)
     loop = None

@@ -17,16 +17,17 @@ itself too; a reader takes the union of a name's intervals.
                        `from_lane_layout`, `lanes.to_xzs` / `from_xzs`,
                        `mesh.shard_x` / `gather_x`
     cdk.kernel         every `counted` wrapper's call: validation, the
-                       ctypes call and the launch
+                       ctypes call and the launch (`build.launch`)
     cdk.dist.exchange  the halo exchange: `mesh.exchange`,
                        `exchange_strips`, `ring_strips`, `ring_exchange`
     cdk.dist.gather    the shards' outputs stacked and their partials
                        summed (`dist/mpdata.py`, `dist/biharmonic.py`)
 
-`counted(fn)` gives a kernel wrapper its `launches` and `steps`, to which
-the wrapper adds where it launches its kernel and nowhere else, registers
-it, and runs each call inside `span("cdk.kernel")`.  `count(name)` is a
-plain process-wide counter:
+`counted(fn)` gives a kernel wrapper its `launches` and `steps`, registers
+it, and runs each call inside `span("cdk.kernel")`; `build.launch`, the
+one way a wrapper launches its kernel, adds each launch and its steps to
+them, so a CPU call, which runs the plain version, counts nothing.
+`count(name)` is a plain process-wide counter:
 
     operator_builds    calls of `operator.build_element_operator`
     prepare_reuses     calls of a HOMME form's set-up that returned the
@@ -64,10 +65,10 @@ def span(name: str):
 
 
 def counted(fn):
-    """`fn`, a kernel wrapper, with its launch count, to which it adds one
-    where it launches its kernel and nowhere else, and its step count, to
-    which it adds the steps that launch ran; registered for `counts()` and
-    called inside `span("cdk.kernel")`."""
+    """`fn`, a kernel wrapper, with its launch count and its step count,
+    to which `build.launch(wrapper, steps, ...)` adds one and the steps
+    that launch ran each time it launches the kernel; registered for
+    `counts()` and called inside `span("cdk.kernel")`."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):

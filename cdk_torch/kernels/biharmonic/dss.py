@@ -30,7 +30,7 @@ from cdk_torch.core.trace import span
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
-    reuse_prepare,
+    element_forms,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -134,28 +134,21 @@ def _fused_dss_forms(cfg, precision):
     rr = rrearth_as(cfg)
     npg = cfg.np_gll
 
-    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)
         return L, dss_weights(data.spheremp)
 
-    def body(L, w, q):
-        s = dss_ring_lane(apply_operator(L, q, precision), w, npg)
-        return apply_operator(L, s, precision)
-
-    def step(aux, data: BiharmonicData) -> torch.Tensor:
-        return from_lane_layout(body(*aux, to_lane_layout(data.qtens)), cfg)
-
-    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+    def run(aux, data: BiharmonicData, n: int) -> torch.Tensor:
         """n steps with the state kept in the lane layout."""
-        L, w = prepare(data)
+        L, w = aux
         q = to_lane_layout(data.qtens)
         for _ in range(n):
-            q = body(L, w, q)
+            s = dss_ring_lane(apply_operator(L, q, precision), w, npg)
+            q = apply_operator(L, s, precision)
         return from_lane_layout(q, cfg)
 
-    return {"prepare": prepare, "step": step, "loop": loop}
+    return element_forms(prepare, run)
 
 
 @register(

@@ -28,7 +28,7 @@ from cdk_torch.core.trace import span
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
-    reuse_prepare,
+    element_forms,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -129,29 +129,22 @@ def _fused_dss2d_forms(cfg, precision):
     npg = cfg.np_gll
     ex, ey = torus_shape(cfg.nelemd)
 
-    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)
         w = dss2d_weights(data.spheremp, ex, ey)
         return L, w.reshape(cfg.nelemd, cfg.npts, 1)
 
-    def body(L, w, q):
-        s = dss2d_lane(apply_operator(L, q, precision), w, ex, ey, npg)
-        return apply_operator(L, s, precision)
-
-    def step(aux, data: BiharmonicData) -> torch.Tensor:
-        return from_lane_layout(body(*aux, to_lane_layout(data.qtens)), cfg)
-
-    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+    def run(aux, data: BiharmonicData, n: int) -> torch.Tensor:
         """n steps with the state kept in the lane layout."""
-        L, w = prepare(data)
+        L, w = aux
         q = to_lane_layout(data.qtens)
         for _ in range(n):
-            q = body(L, w, q)
+            s = dss2d_lane(apply_operator(L, q, precision), w, ex, ey, npg)
+            q = apply_operator(L, s, precision)
         return from_lane_layout(q, cfg)
 
-    return {"prepare": prepare, "step": step, "loop": loop}
+    return element_forms(prepare, run)
 
 
 @register(

@@ -32,9 +32,6 @@ geometry, VMEM budget and 128-lane pad are not ported.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from cdk_torch.core import build
@@ -45,7 +42,7 @@ from cdk_torch.kernels.biharmonic.dss_resident import NPG, NPTS, validate
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
-    reuse_prepare,
+    element_forms,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -107,40 +104,23 @@ def dss2d_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
                          f"got {q_lane.shape[0]}")
     if q_lane.device.type == "cpu":
         return dss2d_resident_plain(L, w, q_lane, ex, ey, nsteps, precision)
-    out = launch(L, w, q_lane, ex, ey, nsteps, precision)
-    dss2d_resident.launches += 1
-    dss2d_resident.steps += nsteps
-    return out
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library()
-    ptrs = [ctypes.c_void_p] * 4
-    lib.cdk_dss2d_resident_f32.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.cdk_dss2d_resident_f64.argtypes = ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.cdk_dss2d_resident_f32.restype = ctypes.c_int
-    lib.cdk_dss2d_resident_f64.restype = ctypes.c_int
-    return lib
+    return launch(L, w, q_lane, ex, ey, nsteps, precision)
 
 
 def launch(L, w, q_lane, ex, ey, nsteps, precision):
     """One launch of csrc/biharmonic_dss2d_resident.cu on CUDA tensors
-    that dss2d_resident has validated.  Counts no launch."""
+    that dss2d_resident has validated, counted on dss2d_resident."""
     if not all(t.is_contiguous() for t in (L, w, q_lane)):
         raise ValueError("dss2d_resident needs contiguous operands")
     out = torch.empty_like(q_lane)
-    ncol = q_lane.shape[2]
-    with torch.cuda.device(q_lane.device):
-        stream = torch.cuda.current_stream(q_lane.device).cuda_stream
-        args = (L.data_ptr(), w.data_ptr(), q_lane.data_ptr(), out.data_ptr(), ex,
-                ey, ncol, nsteps)
-        if q_lane.dtype == torch.float32:
-            err = _lib().cdk_dss2d_resident_f32(
-                *args, int(precision == "bf16x3"), stream)
-        else:
-            err = _lib().cdk_dss2d_resident_f64(*args, stream)
-    build.check(err, "dss2d_resident")
+    args = (L, w, q_lane, out, ex, ey, q_lane.shape[2], nsteps)
+    if q_lane.dtype == torch.float32:
+        build.launch(dss2d_resident, nsteps, "dss2d_resident",
+                     "cdk_dss2d_resident_f32", q_lane.device, *args,
+                     int(precision == "bf16x3"))
+    else:
+        build.launch(dss2d_resident, nsteps, "dss2d_resident",
+                     "cdk_dss2d_resident_f64", q_lane.device, *args)
     return out
 
 
@@ -149,31 +129,24 @@ def _dss2d_resident_forms(cfg, precision: str):
     ex, ey = torus_shape(cfg.nelemd)
     depth = loop_depth(ey)
 
-    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)
         w = dss2d_weights(data.spheremp, ex, ey).reshape(cfg.nelemd, NPTS)
         return L, w.contiguous()
 
-    def _run(aux, qtens, n):
+    def run(aux, data: BiharmonicData, n: int) -> torch.Tensor:
+        """n steps: launches of `depth` steps, then the remainder; the
+        layout changes once at each end."""
         L, w = aux
-        q = to_lane_layout(qtens)
+        q = to_lane_layout(data.qtens)
         while n > 0:
             k = min(depth, n)
             q = dss2d_resident(L, w, q, ex, ey, k, precision)
             n -= k
         return from_lane_layout(q, cfg)
 
-    def step(aux, data: BiharmonicData) -> torch.Tensor:
-        return _run(aux, data.qtens, 1)
-
-    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
-        """n steps: launches of `depth` steps, then the remainder; the
-        layout changes once at each end."""
-        return _run(prepare(data), data.qtens, n)
-
-    return {"prepare": prepare, "step": step, "loop": loop}
+    return element_forms(prepare, run)
 
 
 @register(

@@ -49,9 +49,6 @@ neighbour row and runs on a shard's rows as it is.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from cdk_torch.core import build
@@ -65,8 +62,8 @@ from cdk_torch.kernels.biharmonic.dss2d import (
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
+    element_forms,
     precompose_operator,
-    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -181,17 +178,6 @@ def rowchain_bridge_out_padded_plain(L, w, tp, ex, ey, precision="highest"):
     return apply_operator(L, _ipass_w_padded(tp, w, ex, ey), _prec(precision))
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library()
-    head = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    lib.cdk_rowchain_f32.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    lib.cdk_rowchain_f64.argtypes = head + [ctypes.c_int] + [ctypes.c_void_p]
-    lib.cdk_rowchain_f32.restype = ctypes.c_int
-    lib.cdk_rowchain_f64.restype = ctypes.c_int
-    return lib
-
-
 def _check(op, w, x, ex, ey, precision, pad=0, shape=None):
     """pad > 0: the padded mode, x with pad more rows per side and op/w
     with pad - 1.  shape: x's (e, 16, ncol), where x is not that tensor."""
@@ -217,11 +203,13 @@ def _check(op, w, x, ex, ey, precision, pad=0, shape=None):
                          f"{tuple(x.shape)}")
 
 
-def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what, pad=0,
-            out=None, tmp=None):
-    """One launch; w is None for bridge-in, which reads no inverse mass.
-    pad > 0 is the padded mode on ex owned rows, x padded by pad rows per
-    side; `out` (allocated where None) then has ex rows or x's shape."""
+def _launch(wrapper, mode, op, w, x, ex, ey, nsteps, precision, squared,
+            pad=0, out=None, tmp=None):
+    """One launch, counted on `wrapper`; w is None for bridge-in, which
+    reads no inverse mass.  pad > 0 is the padded mode on ex owned rows, x
+    padded by pad rows per side; `out` (allocated where None) then has ex
+    rows or x's shape."""
+    what = wrapper.__name__
     if not all(t is None or t.is_contiguous() for t in (op, w, x, out, tmp)):
         raise ValueError(f"{what} needs contiguous operands")
     if any(t is not None and t.data_ptr() % 16 for t in (op, w)):
@@ -237,18 +225,14 @@ def _launch(mode, op, w, x, ex, ey, nsteps, precision, squared, what, pad=0,
     if tmp is None and nsteps > 1:
         tmp = torch.empty_like(x)
     out_pad = int(pad > 0 and out.shape[0] == x.shape[0])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (mode, op.data_ptr(), None if w is None else w.data_ptr(),
-                x.data_ptr(), out.data_ptr(),
-                None if tmp is None else tmp.data_ptr(), ex, ey, ncol, nsteps,
-                pad, out_pad, int(natural))
-        if x.dtype == torch.float32:
-            err = _lib().cdk_rowchain_f32(*args, int(precision == "bf16x3"),
-                                          int(squared), stream)
-        else:
-            err = _lib().cdk_rowchain_f64(*args, int(squared), stream)
-    build.check(err, what)
+    args = (mode, op, w, x, out, tmp, ex, ey, ncol, nsteps, pad, out_pad,
+            int(natural))
+    if x.dtype == torch.float32:
+        build.launch(wrapper, nsteps, what, "cdk_rowchain_f32", x.device, *args,
+                     int(precision == "bf16x3"), int(squared))
+    else:
+        build.launch(wrapper, nsteps, what, "cdk_rowchain_f64", x.device, *args,
+                     int(squared))
     return out
 
 
@@ -263,11 +247,8 @@ def rowchain_bridge_in(L, q_lane, ex, ey, precision="highest"):
         count("natural_loads")
     if q_lane.device.type == "cpu":
         return rowchain_bridge_in_plain(L, q_lane, ex, ey, precision)
-    out = _launch(BRIDGE_IN, L, None, q_lane, ex, ey, 1, precision, False,
-                  "rowchain_bridge_in")
-    rowchain_bridge_in.launches += 1
-    rowchain_bridge_in.steps += 1
-    return out
+    return _launch(rowchain_bridge_in, BRIDGE_IN, L, None, q_lane, ex, ey, 1,
+                   precision, False)
 
 
 @counted
@@ -279,10 +260,8 @@ def rowchain_step(F, w, t, ex, ey, nsteps=1, precision="highest",
         raise ValueError(f"nsteps must be >= 1 (got {nsteps})")
     if t.device.type == "cpu":
         return rowchain_step_plain(F, w, t, ex, ey, nsteps, precision, squared)
-    out = _launch(STEP, F, w, t, ex, ey, nsteps, precision, squared,
-                  "rowchain_step")
-    rowchain_step.launches += 1
-    rowchain_step.steps += nsteps
+    out = _launch(rowchain_step, STEP, F, w, t, ex, ey, nsteps, precision,
+                  squared)
     rowchain_step.depth_launches[nsteps] = (
         rowchain_step.depth_launches.get(nsteps, 0) + 1)
     return out
@@ -294,11 +273,8 @@ def rowchain_bridge_out(L, w, t, ex, ey, precision="highest"):
     _check(L, w, t, ex, ey, precision)
     if t.device.type == "cpu":
         return rowchain_bridge_out_plain(L, w, t, ex, ey, precision)
-    out = _launch(BRIDGE_OUT, L, w, t, ex, ey, 1, precision, False,
-                  "rowchain_bridge_out")
-    rowchain_bridge_out.launches += 1
-    rowchain_bridge_out.steps += 1
-    return out
+    return _launch(rowchain_bridge_out, BRIDGE_OUT, L, w, t, ex, ey, 1,
+                   precision, False)
 
 
 @counted
@@ -336,12 +312,10 @@ def rowchain_step_padded(F, w, tp, ex, ey, nsteps=1, precision="highest",
             out = torch.zeros_like(tp)
         out[lo:lo + ex * ey] = t
         return out
-    out = _launch(STEP, F, w, tp, ex, ey, nsteps, precision, squared,
-                  "rowchain_step_padded", pad=nsteps,
+    out = _launch(rowchain_step_padded, STEP, F, w, tp, ex, ey, nsteps,
+                  precision, squared, pad=nsteps,
                   out=torch.empty(shape, dtype=tp.dtype, device=tp.device)
                   if out is None else out, tmp=tmp)
-    rowchain_step_padded.launches += 1
-    rowchain_step_padded.steps += nsteps
     rowchain_step_padded.depth_launches[nsteps] = (
         rowchain_step_padded.depth_launches.get(nsteps, 0) + 1)
     return out
@@ -354,11 +328,8 @@ def rowchain_bridge_out_padded(L, w, tp, ex, ey, precision="highest"):
     _check(L, w, tp, ex, ey, precision, pad=1)
     if tp.device.type == "cpu":
         return rowchain_bridge_out_padded_plain(L, w, tp, ex, ey, precision)
-    out = _launch(BRIDGE_OUT, L, w, tp, ex, ey, 1, precision, False,
-                  "rowchain_bridge_out_padded", pad=1)
-    rowchain_bridge_out_padded.launches += 1
-    rowchain_bridge_out_padded.steps += 1
-    return out
+    return _launch(rowchain_bridge_out_padded, BRIDGE_OUT, L, w, tp, ex, ey,
+                   1, precision, False, pad=1)
 
 
 # the step's launches by depth, beside its `launches` and `steps`
@@ -371,26 +342,19 @@ def _rowchain_forms(cfg, precision: str, precomposed: bool = False):
     ex, ey = torus_shape(cfg.nelemd)
     depth = loop_depth(precision, precomposed)
 
-    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)
         w = dss2d_weights(data.spheremp, ex, ey).reshape(cfg.nelemd, NPTS)
         return L, w.contiguous(), precompose_operator(L) if precomposed else L
 
-    def step(aux, data: BiharmonicData) -> torch.Tensor:
-        L, w, _ = aux
-        # K15 reads the state where it lies (no lane copy)
-        t = rowchain_bridge_in(L, data.qtens.contiguous(), ex, ey, precision)
-        return from_lane_layout(
-            rowchain_bridge_out(L, w, t, ex, ey, precision), cfg)
-
-    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+    def run(aux, data: BiharmonicData, n: int) -> torch.Tensor:
         """bridge-in, n-1 t-steps (launches of `depth`, then the
-        remainder), bridge-out: n steps for n >= 1."""
+        remainder), bridge-out: n steps for n >= 1.  K15 reads the state
+        where it lies (no lane copy)."""
         if n < 1:
             raise ValueError(f"the rowchain loop takes n >= 1 steps (got {n})")
-        L, w, F = prepare(data)
+        L, w, F = aux
         t = rowchain_bridge_in(L, data.qtens.contiguous(), ex, ey, precision)
         nt = n - 1
         while nt > 0:
@@ -400,7 +364,7 @@ def _rowchain_forms(cfg, precision: str, precomposed: bool = False):
         return from_lane_layout(
             rowchain_bridge_out(L, w, t, ex, ey, precision), cfg)
 
-    return {"prepare": prepare, "step": step, "loop": loop}
+    return element_forms(prepare, run)
 
 
 @register(

@@ -36,9 +36,6 @@ launch either way.  Beside it, `dss_resident_window_plain`.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from cdk_torch.core import build
@@ -52,8 +49,8 @@ from cdk_torch.kernels.biharmonic.dss import (
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
     build_element_operator,
+    element_forms,
     precompose_operator,
-    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -129,23 +126,6 @@ def dss_resident_window_plain(L_ext: torch.Tensor, w_ext: torch.Tensor,
     return q[h:h + q_lane.shape[0]]
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library()
-    ptrs = [ctypes.c_void_p] * 5
-    lib.cdk_dss_resident_f32.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.cdk_dss_resident_f64.argtypes = ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    wptrs = [ctypes.c_void_p] * 7
-    lib.cdk_dss_resident_window_f32.argtypes = (wptrs + [ctypes.c_int] * 6
-                                                + [ctypes.c_void_p])
-    lib.cdk_dss_resident_window_f64.argtypes = (wptrs + [ctypes.c_int] * 5
-                                                + [ctypes.c_void_p])
-    for fn in (lib.cdk_dss_resident_f32, lib.cdk_dss_resident_f64,
-               lib.cdk_dss_resident_window_f32, lib.cdk_dss_resident_window_f64):
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def validate(L, w, q_lane, nsteps, precision, L2, max_steps=MAX_STEPS,
              n_ops=None):
     """n_ops: the operators' and weights' element count (q_lane's, unless
@@ -171,28 +151,6 @@ def validate(L, w, q_lane, nsteps, precision, L2, max_steps=MAX_STEPS,
                          f"{tuple(w.shape)}, {tuple(q_lane.shape)}")
 
 
-def launch(L, w, q_lane, nsteps, precision, L2, what):
-    """One launch of csrc/biharmonic_dss_resident.cu on the ring; arguments
-    already validated."""
-    sq = L2 is not None
-    l2 = L2 if sq else L
-    if not all(t.is_contiguous() for t in (L, l2, w, q_lane)):
-        raise ValueError(f"{what} needs contiguous operands")
-    e, _, ncol = q_lane.shape
-    out = torch.empty_like(q_lane)
-    with torch.cuda.device(q_lane.device):
-        stream = torch.cuda.current_stream(q_lane.device).cuda_stream
-        args = (L.data_ptr(), l2.data_ptr(), w.data_ptr(), q_lane.data_ptr(),
-                out.data_ptr(), e, ncol, nsteps)
-        if q_lane.dtype == torch.float32:
-            err = _lib().cdk_dss_resident_f32(
-                *args, int(precision == "bf16x3"), int(sq), stream)
-        else:
-            err = _lib().cdk_dss_resident_f64(*args, int(sq), stream)
-    build.check(err, what)
-    return out
-
-
 @counted
 def dss_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
                  nsteps: int, precision: str = "highest",
@@ -202,9 +160,20 @@ def dss_resident(L: torch.Tensor, w: torch.Tensor, q_lane: torch.Tensor,
     validate(L, w, q_lane, nsteps, precision, L2)
     if q_lane.device.type == "cpu":
         return dss_resident_plain(L, w, q_lane, nsteps, precision, L2)
-    out = launch(L, w, q_lane, nsteps, precision, L2, "dss_resident")
-    dss_resident.launches += 1
-    dss_resident.steps += nsteps
+    sq = L2 is not None
+    l2 = L2 if sq else L
+    if not all(t.is_contiguous() for t in (L, l2, w, q_lane)):
+        raise ValueError("dss_resident needs contiguous operands")
+    e, _, ncol = q_lane.shape
+    out = torch.empty_like(q_lane)
+    args = (L, l2, w, q_lane, out, e, ncol, nsteps)
+    if q_lane.dtype == torch.float32:
+        build.launch(dss_resident, nsteps, "dss_resident",
+                     "cdk_dss_resident_f32", q_lane.device, *args,
+                     int(precision == "bf16x3"), int(sq))
+    else:
+        build.launch(dss_resident, nsteps, "dss_resident",
+                     "cdk_dss_resident_f64", q_lane.device, *args, int(sq))
     return out
 
 
@@ -245,51 +214,39 @@ def dss_resident_window(L_ext: torch.Tensor, w_ext: torch.Tensor,
     elif (out.shape != q_lane.shape or out.dtype != q_lane.dtype
           or out.device != q_lane.device or not out.is_contiguous()):
         raise ValueError("out must be a contiguous tensor like q_lane")
-    ncol = q_lane.shape[2]
-    with torch.cuda.device(q_lane.device):
-        stream = torch.cuda.current_stream(q_lane.device).cuda_stream
-        args = (L_ext.data_ptr(), l2.data_ptr(), w_ext.data_ptr(), hl.data_ptr(),
-                q_lane.data_ptr(), hr.data_ptr(), out.data_ptr(), e, h, ncol,
-                nsteps)
-        if q_lane.dtype == torch.float32:
-            err = _lib().cdk_dss_resident_window_f32(
-                *args, int(precision == "bf16x3"), int(sq), stream)
-        else:
-            err = _lib().cdk_dss_resident_window_f64(*args, int(sq), stream)
-    build.check(err, "dss_resident_window")
-    dss_resident_window.launches += 1
-    dss_resident_window.steps += nsteps
+    args = (L_ext, l2, w_ext, hl, q_lane, hr, out, e, h, q_lane.shape[2], nsteps)
+    if q_lane.dtype == torch.float32:
+        build.launch(dss_resident_window, nsteps, "dss_resident_window",
+                     "cdk_dss_resident_window_f32", q_lane.device, *args,
+                     int(precision == "bf16x3"), int(sq))
+    else:
+        build.launch(dss_resident_window, nsteps, "dss_resident_window",
+                     "cdk_dss_resident_window_f64", q_lane.device, *args,
+                     int(sq))
     return out
 
 
 def _dss_resident_forms(cfg, precision: str, precomposed: bool = False):
     rr = rrearth_as(cfg)
 
-    @reuse_prepare
     def prepare(data: BiharmonicData):
         L = build_element_operator(data.dvv, data.dinv, data.spheremp,
                                    data.tensorvisc, rr)
         w = dss_weights(data.spheremp).reshape(cfg.nelemd, NPTS).contiguous()
         return L, w, precompose_operator(L) if precomposed else None
 
-    def _run(aux, qtens, n):
+    def run(aux, data: BiharmonicData, n: int) -> torch.Tensor:
+        """n steps: launches of DEPTH steps, then the remainder; the
+        layout changes once at each end."""
         L, w, L2 = aux
-        q = to_lane_layout(qtens)
+        q = to_lane_layout(data.qtens)
         while n > 0:
             k = min(DEPTH, n)
             q = dss_resident(L, w, q, k, precision, L2)
             n -= k
         return from_lane_layout(q, cfg)
 
-    def step(aux, data: BiharmonicData) -> torch.Tensor:
-        return _run(aux, data.qtens, 1)
-
-    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
-        """n steps: launches of DEPTH steps, then the remainder; the
-        layout changes once at each end."""
-        return _run(prepare(data), data.qtens, n)
-
-    return {"prepare": prepare, "step": step, "loop": loop}
+    return element_forms(prepare, run)
 
 
 @register(

@@ -23,9 +23,6 @@ the plain version for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from cdk_torch.core import build
@@ -92,17 +89,6 @@ def fused_laplace_plain(dvv: torch.Tensor, elem: torch.Tensor,
     return -rrearth * (_stage(b1, x, precision) + _stage(b2, y, precision))
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library()
-    lib.cdk_biharmonic_fused.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float,
-                                                      ctypes.c_int,
-                                                      ctypes.c_void_p])
-    lib.cdk_biharmonic_fused.restype = ctypes.c_int
-    return lib
-
-
 def _validate(dvv, elem, q_lane, precision):
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
@@ -132,14 +118,9 @@ def fused_laplace(dvv: torch.Tensor, elem: torch.Tensor, q_lane: torch.Tensor,
         raise ValueError("fused_laplace needs contiguous dvv, elem and q_lane")
     e, _, ncol = q_lane.shape
     out = torch.empty_like(q_lane)
-    stream = torch.cuda.current_stream(q_lane.device).cuda_stream
-    with torch.cuda.device(q_lane.device):
-        err = _lib().cdk_biharmonic_fused(
-            *(t.data_ptr() for t in args), out.data_ptr(), e, ncol,
-            float(rrearth), int(precision == "default"), stream)
-    build.check(err, "fused_laplace")
-    fused_laplace.launches += 1
-    fused_laplace.steps += 1
+    build.launch(fused_laplace, 1, "fused_laplace", "cdk_biharmonic_fused",
+                 q_lane.device, *args, out, e, ncol, float(rrearth),
+                 int(precision == "default"))
     return out
 
 

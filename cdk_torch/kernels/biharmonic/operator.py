@@ -31,7 +31,7 @@ import functools
 import torch
 
 from cdk_torch.core.platform import exact_fp32
-from cdk_torch.core.registry import UnsupportedConfigError, register
+from cdk_torch.core.registry import UnsupportedConfigError, forms, register
 from cdk_torch.core.trace import count, span
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -99,6 +99,13 @@ def reuse_prepare(prepare):
             return aux
 
     return reusing
+
+
+def element_forms(prepare, run) -> dict:
+    """`registry.forms(prepare, run)` for a HOMME loop whose set-up
+    `prepare(data)` is built from the element fields alone: the set-up is
+    kept by `reuse_prepare` while they are unchanged."""
+    return forms(reuse_prepare(prepare), run)
 
 
 PRECISIONS = ("highest", "high", "default")
@@ -246,20 +253,9 @@ def _bd8_forms(cfg, precision: str):
     block-diagonal grouping is a TPU tiling, so the per-element operators
     are applied as they are."""
     rr = rrearth_as(cfg)
-
-    @reuse_prepare
-    def prepare(data: BiharmonicData):
-        return (element_operator(data, rr),)
-
-    def step(aux, data: BiharmonicData) -> torch.Tensor:
-        (L,) = aux
-        return _chain(L, data, 1, precision, cfg)
-
-    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
-        (L,) = prepare(data)
-        return _chain(L, data, n, precision, cfg)
-
-    return {"prepare": prepare, "step": step, "loop": loop}
+    return element_forms(lambda data: (element_operator(data, rr),),
+                         lambda aux, data, n: _chain(aux[0], data, n,
+                                                     precision, cfg))
 
 
 @register(

@@ -33,9 +33,6 @@ lane layout either way.  K5 takes the lane layout only.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from cdk_torch.core import build
@@ -43,8 +40,8 @@ from cdk_torch.core.registry import register
 from cdk_torch.core.trace import count, counted
 from cdk_torch.kernels.biharmonic.operator import (
     apply_operator,
+    element_forms,
     element_operator,
-    reuse_prepare,
 )
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -72,18 +69,6 @@ def bd8_resident_plain(L: torch.Tensor, q_lane: torch.Tensor, n: int,
     return q
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library()
-    lib.cdk_bd8_resident_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.cdk_bd8_resident_f64.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    lib.cdk_bd8_resident_f32.restype = ctypes.c_int
-    lib.cdk_bd8_resident_f64.restype = ctypes.c_int
-    return lib
-
-
 def _validate(L, q_lane, n, precision) -> bool:
     """Refuse what the kernel cannot run; True where q_lane is the state's
     own layout."""
@@ -107,8 +92,9 @@ def _validate(L, q_lane, n, precision) -> bool:
     return q_lane.dim() == 5
 
 
-def _launch(L: torch.Tensor, q_lane: torch.Tensor, n: int,
+def _launch(wrapper, L: torch.Tensor, q_lane: torch.Tensor, n: int,
             precision: str) -> torch.Tensor:
+    """One launch of the operator kernel, counted on `wrapper`."""
     if not (L.is_contiguous() and q_lane.is_contiguous()):
         raise ValueError("the operator kernel needs contiguous L and q_lane")
     natural = q_lane.dim() == 5
@@ -117,17 +103,14 @@ def _launch(L: torch.Tensor, q_lane: torch.Tensor, n: int,
                          "in 16-byte pieces: it must start 16-byte aligned")
     e, _, ncol = lane_shape(q_lane)
     out = torch.empty((e, NPTS, ncol), dtype=q_lane.dtype, device=q_lane.device)
-    stream = torch.cuda.current_stream(q_lane.device).cuda_stream
-    with torch.cuda.device(q_lane.device):
-        if q_lane.dtype == torch.float32:
-            err = _lib().cdk_bd8_resident_f32(
-                L.data_ptr(), q_lane.data_ptr(), out.data_ptr(), e, ncol, n,
-                int(precision == "bf16x3"), int(natural), stream)
-        else:
-            err = _lib().cdk_bd8_resident_f64(
-                L.data_ptr(), q_lane.data_ptr(), out.data_ptr(), e, ncol, n,
-                int(natural), stream)
-    build.check(err, "biharmonic_resident")
+    args = (L, q_lane, out, e, ncol, n)
+    if q_lane.dtype == torch.float32:
+        build.launch(wrapper, n, "biharmonic_resident", "cdk_bd8_resident_f32",
+                     q_lane.device, *args, int(precision == "bf16x3"),
+                     int(natural))
+    else:
+        build.launch(wrapper, n, "biharmonic_resident", "cdk_bd8_resident_f64",
+                     q_lane.device, *args, int(natural))
     return out
 
 
@@ -142,10 +125,7 @@ def bd8_resident(L: torch.Tensor, q_lane: torch.Tensor, n: int,
         count("natural_loads")
     if q_lane.device.type == "cpu":
         return bd8_resident_plain(L, q_lane, n, precision)
-    out = _launch(L, q_lane, n, precision)
-    bd8_resident.launches += 1
-    bd8_resident.steps += n
-    return out
+    return _launch(bd8_resident, L, q_lane, n, precision)
 
 
 @counted
@@ -156,10 +136,7 @@ def apply_operator_pallas(L: torch.Tensor, q_lane: torch.Tensor) -> torch.Tensor
         raise ValueError(f"K5 takes the lane layout (e,{NPTS},ncol)")
     if q_lane.device.type == "cpu":
         return bd8_resident_plain(L, q_lane, 1)
-    out = _launch(L, q_lane, 1, "highest")
-    apply_operator_pallas.launches += 1
-    apply_operator_pallas.steps += 1
-    return out
+    return _launch(apply_operator_pallas, L, q_lane, 1, "highest")
 
 
 @register(
@@ -172,49 +149,28 @@ def apply_operator_pallas(L: torch.Tensor, q_lane: torch.Tensor) -> torch.Tensor
 def make_fused_operator_pallas(cfg):
     rr = rrearth_as(cfg)
 
-    @reuse_prepare
-    def prepare(data: BiharmonicData):
-        return (element_operator(data, rr),)
-
-    def step(aux, data: BiharmonicData) -> torch.Tensor:
-        (L,) = aux
-        return from_lane_layout(
-            apply_operator_pallas(L, to_lane_layout(data.qtens)), cfg)
-
-    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+    def run(aux, data: BiharmonicData, n: int) -> torch.Tensor:
         """n launches, one step each (as the JAX scan of its kernel)."""
-        (L,) = prepare(data)
+        (L,) = aux
         q = to_lane_layout(data.qtens)
         for _ in range(n):
             q = apply_operator_pallas(L, q)
         return from_lane_layout(q, cfg)
 
-    return {"prepare": prepare, "step": step, "loop": loop}
+    return element_forms(lambda data: (element_operator(data, rr),), run)
 
 
 def _bd8_resident_forms(cfg, precision: str):
     rr = rrearth_as(cfg)
 
-    @reuse_prepare
-    def prepare(data: BiharmonicData):
-        return (element_operator(data, rr),)
-
-    def _run(L, qtens, n):
-        # the kernel reads the state where it lies (no lane copy)
-        out = bd8_resident(L, qtens.contiguous(), n, precision)
-        return from_lane_layout(out, cfg)
-
-    def step(aux, data: BiharmonicData) -> torch.Tensor:
-        (L,) = aux
-        return _run(L, data.qtens, 1)
-
-    def loop(data: BiharmonicData, n: int) -> torch.Tensor:
+    def run(aux, data: BiharmonicData, n: int) -> torch.Tensor:
         """n applications in one launch (the timed path), reading the
         state's own layout; the output is a view of the lane layout."""
-        (L,) = prepare(data)
-        return _run(L, data.qtens, n)
+        (L,) = aux
+        out = bd8_resident(L, data.qtens.contiguous(), n, precision)
+        return from_lane_layout(out, cfg)
 
-    return {"prepare": prepare, "step": step, "loop": loop}
+    return element_forms(lambda data: (element_operator(data, rr),), run)
 
 
 @register(

@@ -25,9 +25,10 @@ from __future__ import annotations
 
 import torch
 
+from cdk_torch.core import build
 from cdk_torch.core.registry import register
 from cdk_torch.core.trace import counted
-from cdk_torch.kernels.cke.launch import check_inputs, launch
+from cdk_torch.kernels.cke.launch import check_inputs
 from cdk_torch.kernels.cke.problem import CkeData
 from cdk_torch.kernels.cke.reference import coef3_of, fsign1
 
@@ -65,11 +66,10 @@ def cke_lanegather(cells_t, c1t, c3t, tm_t, ntfm_t, sgn_t, coef3: float):
                          f"grid's y extent (65535 tiles of 32 levels)")
     tab = torch.empty((c, k), dtype=tm_t.dtype, device=tm_t.device)
     out_t = torch.empty_like(ntfm_t)
-    launch("cke_lanegather", "cdk_cke_lanegather",
-           [cells_t, c1t, c3t, tm_t, ntfm_t, sgn_t, tab, out_t], [e, c, a, k],
-           coef3)
-    cke_lanegather.launches += 1
-    cke_lanegather.steps += 1
+    build.launch(cke_lanegather, 1, "cke_lanegather", "cdk_cke_lanegather_f32"
+                 if tm_t.dtype == torch.float32 else "cdk_cke_lanegather_f64",
+                 tm_t.device, cells_t, c1t, c3t, tm_t, ntfm_t, sgn_t, tab, out_t,
+                 e, c, a, k, coef3)
     return out_t
 
 

@@ -25,9 +25,10 @@ from __future__ import annotations
 
 import torch
 
+from cdk_torch.core import build
 from cdk_torch.core.registry import UnsupportedConfigError, register
 from cdk_torch.core.trace import counted
-from cdk_torch.kernels.cke.launch import check_inputs, launch
+from cdk_torch.kernels.cke.launch import check_inputs
 from cdk_torch.kernels.cke.onehot_mxu import (
     apply_onehot,
     build_connectivity_matrices,
@@ -62,10 +63,13 @@ def cke_onehot(cells, c1, c3, t, ntf, adv_mask, coef3: float,
     if t.device.type == "cpu":
         return cke_onehot_plain(cells, c1, c3, t, ntf, adv_mask, coef3, bf16)
     out = torch.empty_like(ntf)
-    launch("cke_onehot", "cdk_cke_onehot", [cells, c1, c3, t, ntf, adv_mask, out],
-           [e, c, a, k], coef3, flag=int(bf16) if t.dtype == torch.float32 else None)
-    cke_onehot.launches += 1
-    cke_onehot.steps += 1
+    args = (cells, c1, c3, t, ntf, adv_mask, out, e, c, a, k, coef3)
+    if t.dtype == torch.float32:
+        build.launch(cke_onehot, 1, "cke_onehot", "cdk_cke_onehot_f32", t.device,
+                     *args, int(bf16))
+    else:
+        build.launch(cke_onehot, 1, "cke_onehot", "cdk_cke_onehot_f64", t.device,
+                     *args)
     return out
 
 

@@ -24,10 +24,11 @@ from __future__ import annotations
 
 import torch
 
+from cdk_torch.core import build
 from cdk_torch.core.registry import register
 from cdk_torch.core.trace import counted
 from cdk_torch.kernels.cke.gather_peradv import gather_flux as cke_rows_plain
-from cdk_torch.kernels.cke.launch import check_inputs, launch
+from cdk_torch.kernels.cke.launch import check_inputs
 from cdk_torch.kernels.cke.problem import CkeData
 from cdk_torch.kernels.cke.reference import coef3_of
 
@@ -45,10 +46,9 @@ def cke_rows(cells, c1, c3, t, ntf, adv_mask, coef3: float):
     if t.device.type == "cpu":
         return cke_rows_plain(cells, c1, c3, t, ntf, adv_mask, coef3)
     out = torch.empty_like(ntf)
-    launch("cke_rows", "cdk_cke_rows", [cells, c1, c3, t, ntf, adv_mask, out],
-           [e, c, a, k], coef3)
-    cke_rows.launches += 1
-    cke_rows.steps += 1
+    build.launch(cke_rows, 1, "cke_rows", "cdk_cke_rows_f32"
+                 if t.dtype == torch.float32 else "cdk_cke_rows_f64", t.device,
+                 cells, c1, c3, t, ntf, adv_mask, out, e, c, a, k, coef3)
     return out
 
 

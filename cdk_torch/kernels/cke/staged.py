@@ -18,9 +18,10 @@ from __future__ import annotations
 
 import torch
 
+from cdk_torch.core import build
 from cdk_torch.core.registry import UnsupportedConfigError, register
 from cdk_torch.core.trace import counted
-from cdk_torch.kernels.cke.launch import check_inputs, launch
+from cdk_torch.kernels.cke.launch import check_inputs
 from cdk_torch.kernels.cke.problem import CkeData
 from cdk_torch.kernels.cke.reference import coef3_of, slot_order_flux
 
@@ -51,10 +52,10 @@ def cke_staged(staged, c1, c3, ntf, adv_mask, coef3: float):
     if staged.device.type == "cpu":
         return cke_staged_plain(staged, c1, c3, ntf, adv_mask, coef3)
     out = torch.empty_like(ntf)
-    launch("cke_staged", "cdk_cke_staged", [staged, c1, c3, ntf, adv_mask, out],
-           [e, a, k], coef3)
-    cke_staged.launches += 1
-    cke_staged.steps += 1
+    build.launch(cke_staged, 1, "cke_staged", "cdk_cke_staged_f32"
+                 if staged.dtype == torch.float32 else "cdk_cke_staged_f64",
+                 staged.device, staged, c1, c3, ntf, adv_mask, out, e, a, k,
+                 coef3)
     return out
 
 

@@ -25,9 +25,6 @@ and its public functions keep the canonical (S, X, Z) layout.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from cdk_torch.core import build
@@ -57,16 +54,6 @@ def advect_lanes_plain(f, u, w, rho, rhow, adz, flux):
     f_o, flux_o = advect_scalar2d(*(from_xzs(t) for t in
                                     (f, u, w, rho, rhow, adz, flux)))
     return to_xzs(f_o), to_xzs(flux_o)
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library()
-    for name in ("cdk_mpdata_lanes_f32", "cdk_mpdata_lanes_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def _validate(f, u, w, rho, rhow, adz, flux):
@@ -101,15 +88,10 @@ def advect_lanes(f, u, w, rho, rhow, adz, flux, *, warps=None):
         raise ValueError("advect_lanes needs contiguous fields")
     xf, nzm, s = f.shape
     f_out, flux_out = torch.empty_like(f), torch.empty_like(flux)
-    fn = (_lib().cdk_mpdata_lanes_f32 if f.dtype == torch.float32
-          else _lib().cdk_mpdata_lanes_f64)
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    with torch.cuda.device(f.device):
-        err = fn(*(t.data_ptr() for t in args), f_out.data_ptr(),
-                 flux_out.data_ptr(), s, xf - 6, nzm, check_warps(warps), stream)
-    build.check(err, "advect_lanes")
-    advect_lanes.launches += 1
-    advect_lanes.steps += 1
+    build.launch(advect_lanes, 1, "advect_lanes",
+                 "cdk_mpdata_lanes_f32" if f.dtype == torch.float32
+                 else "cdk_mpdata_lanes_f64", f.device, *args, f_out, flux_out,
+                 s, xf - 6, nzm, check_warps(warps))
     return f_out, flux_out
 
 

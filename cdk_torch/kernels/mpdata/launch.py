@@ -1,50 +1,38 @@
-"""Binding of the MPDATA kernels, the x sweep of csrc/mpdata_sweep.cuh:
+"""What the MPDATA kernels, the x sweep of csrc/mpdata_sweep.cuh, share:
 csrc/mpdata_resident.cu, the step kernel in its hoisted form (K2, K9; see
-resident.py) and its staged form (K6, K7, K8; see staged.py), and
-csrc/mpdata_masked.cu, the masked-global step (K20-K25; see masked.py).
-The ctypes entry points, the level limit both take (`check_levels`: the
-sweep holds any nx and at most `cdk_mpdata_max_levels()` levels), the
+resident.py) and its staged form (K6, K7, K8; see staged.py),
+csrc/mpdata_masked.cu, the masked-global step (K20-K25; see masked.py) and
+csrc/mpdata_lanes.cu (K10; see lanes.py).  The level limit they take
+(`check_levels`: the sweep holds any nx and at most
+`cdk_mpdata_max_levels()` levels), the warps a slice (`check_warps`), the
 checks of the resident/staged wrappers, `step_kernel`, which makes such a
-wrapper (counted by `core/trace.py`'s `counted`, as every wrapper is), and
-`resident_forms`, the registry forms of an n-steps-per-launch variant.
+wrapper, and `resident_forms`, the registry forms of an
+n-steps-per-launch variant.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from cdk_torch.core import build
-from cdk_torch.core.registry import UnsupportedConfigError
+from cdk_torch.core.registry import UnsupportedConfigError, forms
 from cdk_torch.core.trace import counted, span
 from cdk_torch.kernels.mpdata.problem import MpdataData
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library()
-    for name in ("cdk_mpdata_resident_f32", "cdk_mpdata_resident_f64",
-                 "cdk_mpdata_staged_f32", "cdk_mpdata_staged_f64",
-                 "cdk_mpdata_staged_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for name in ("cdk_mpdata_masked_f32", "cdk_mpdata_masked_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    lib.cdk_mpdata_max_levels.argtypes = []
-    lib.cdk_mpdata_max_levels.restype = ctypes.c_int
-    return lib
+def max_levels() -> int:
+    """The most levels (nzm) a slice of the sweep may have."""
+    fn, _ = build.library()["cdk_mpdata_max_levels"]
+    return fn()
 
 
 def check_levels(nzm: int, what: str) -> None:
     """Refuse (UnsupportedConfigError, never a fallback) a slice of more
     levels than the sweep's lanes hold."""
-    if nzm > (most := _lib().cdk_mpdata_max_levels()):
+    if nzm > (most := max_levels()):
         raise UnsupportedConfigError(
             f"{what} takes at most {most} levels a slice (nzm={nzm})")
 
@@ -88,22 +76,6 @@ def _validate(f, u, w, rho, rhow, adz, flux, n, hoist):
         check_levels(nzm, f"the {'hoisted' if hoist else 'staged'} step")
 
 
-def _launch(f, u, w, rho, rhow, adz, flux, n, hoist, warps):
-    args = (f, u, w, rho, rhow, adz, flux)
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("the MPDATA step kernel needs contiguous fields")
-    s, xf, nzm = f.shape
-    f_out = torch.empty_like(f)
-    flux_out = torch.empty_like(flux)
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    with torch.cuda.device(f.device):
-        err = getattr(_lib(), _ENTRY[hoist, f.dtype])(
-            *(t.data_ptr() for t in args), f_out.data_ptr(),
-            flux_out.data_ptr(), s, xf - 6, nzm, n, check_warps(warps), stream)
-    build.check(err, "mpdata_resident")
-    return f_out, flux_out
-
-
 def step_kernel(name: str, hoist: bool, plain, doc: str):
     """A wrapper of csrc/mpdata_resident.cu, hoisted or staged, with its own
     launch count: fn(f, u, w, rho, rhow, adz, flux, n) -> (f, flux) after
@@ -117,10 +89,16 @@ def step_kernel(name: str, hoist: bool, plain, doc: str):
         _validate(f, u, w, rho, rhow, adz, flux, n, hoist)
         if f.device.type == "cpu":
             return plain(f, u, w, rho, rhow, adz, flux, n)
-        out = _launch(f, u, w, rho, rhow, adz, flux, n, hoist, warps)
-        wrapper.launches += 1
-        wrapper.steps += n
-        return out
+        args = (f, u, w, rho, rhow, adz, flux)
+        if not all(t.is_contiguous() for t in args):
+            raise ValueError("the MPDATA step kernel needs contiguous fields")
+        s, xf, nzm = f.shape
+        f_out = torch.empty_like(f)
+        flux_out = torch.empty_like(flux)
+        build.launch(wrapper, n, "mpdata_resident", _ENTRY[hoist, f.dtype],
+                     f.device, *args, f_out, flux_out, s, xf - 6, nzm, n,
+                     check_warps(warps))
+        return f_out, flux_out
 
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = doc
@@ -137,12 +115,5 @@ def resident_forms(run):
             return tuple(t.contiguous() for t in
                          (data.u, data.w, data.rho, data.rhow, data.adz))
 
-    def step(aux, data: MpdataData):
-        return run(data.f.contiguous(), *aux, data.flux.contiguous(), 1)
-
-    def loop(data: MpdataData, n: int):
-        """n steps inside one launch (the timed path)."""
-        return run(data.f.contiguous(), *prepare(data),
-                   data.flux.contiguous(), n)
-
-    return {"step": step, "prepare": prepare, "loop": loop}
+    return forms(prepare, lambda aux, data, n: run(
+        data.f.contiguous(), *aux, data.flux.contiguous(), n))

@@ -48,7 +48,7 @@ import torch
 from cdk_torch.core import build
 from cdk_torch.core.platform import exact_fp32
 from cdk_torch.core.trace import counted
-from cdk_torch.kernels.mpdata.launch import _lib, check_levels, check_warps
+from cdk_torch.kernels.mpdata.launch import check_levels, check_warps
 from cdk_torch.kernels.mpdata.reference import (
     EPS,
     _across,
@@ -328,40 +328,16 @@ def _validate(f, u, w, rho, rhow, adz, X, nzm, nsteps, owned_lo, owned_hi,
         check_levels(nzm, "the masked step")
 
 
-def _launch(f, fl, fr, u, w, rho, rhow, adz, gi0, nx, owned_lo, owned_hi,
-            nsteps, hoist, warps):
-    """One launch over all slices; fl/fr None for a pre-built window, else
-    the left and right strips around the owned block f (owned columns
-    are then the only ones written, and a window-sized scratch buffer
-    carries the steps before the last)."""
-    halo = 0 if fl is None else fl.shape[1]
-    s, X, nzm = u.shape
-    args = [t for t in (fl, f, fr, u, w, rho, rhow, adz) if t is not None]
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("the masked step kernel needs contiguous fields")
-    f_out = torch.empty_like(f)
-    flux_out = f.new_empty((s, nzm))
-    win = u.new_empty((s, X, nzm)) if fl is not None and nsteps > 1 else None
-    ptr = lambda t: None if t is None else t.data_ptr()
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    with torch.cuda.device(f.device):
-        err = getattr(_lib(), _ENTRY[f.dtype])(
-            ptr(fl), f.data_ptr(), ptr(fr), u.data_ptr(), w.data_ptr(),
-            rho.data_ptr(), rhow.data_ptr(), adz.data_ptr(), f_out.data_ptr(),
-            flux_out.data_ptr(), ptr(win), s, X, nzm, nx, int(gi0), owned_lo,
-            owned_hi, halo, nsteps, int(hoist), check_warps(warps), stream)
-    build.check(err, "mpdata_masked")
-    return f_out, flux_out
-
-
 def _masked(wrapper, f, strips, u, w, rho, rhow, adz, gi0, nx, nzm,
             owned_lo, owned_hi, nsteps, hoist, warps):
     """The body of every wrapper: check, then the plain version for CPU
-    tensors or one launch (counted on `wrapper`) for CUDA tensors.  strips
-    is None for a pre-built window, else the (left, right) strips around
-    the owned block f, whose owned columns alone are returned.  `warps`
-    sets the kernel's warps a slice (1, 2, 4 or 8) where its own choice by
-    slice count is not wanted, as a measurement of that choice does."""
+    tensors or one launch over all slices (counted on `wrapper`) for CUDA
+    tensors.  strips is None for a pre-built window, else the (left,
+    right) strips around the owned block f, whose owned columns alone are
+    returned (the kernel writes only those, and a window-sized scratch
+    buffer carries the steps before the last).  `warps` sets the kernel's
+    warps a slice (1, 2, 4 or 8) where its own choice by slice count is
+    not wanted, as a measurement of that choice does."""
     if f.shape[-1] != nzm:
         raise ValueError(f"nzm={nzm} but f has {f.shape[-1]} levels")
     X = u.shape[1]
@@ -374,11 +350,19 @@ def _masked(wrapper, f, strips, u, w, rho, rhow, adz, gi0, nx, nzm,
                      else masked_step_plain(*args))
         return (f_o, flux) if strips is None else (f_o[:, owned_lo:owned_hi], flux)
     fl, fr = strips or (None, None)
-    out = _launch(f, fl, fr, u, w, rho, rhow, adz, gi0, nx, owned_lo,
-                  owned_hi, nsteps, hoist, warps)
-    wrapper.launches += 1
-    wrapper.steps += nsteps
-    return out
+    halo = 0 if fl is None else fl.shape[1]
+    s = u.shape[0]
+    if not all(t is None or t.is_contiguous()
+               for t in (fl, f, fr, u, w, rho, rhow, adz)):
+        raise ValueError("the masked step kernel needs contiguous fields")
+    f_out = torch.empty_like(f)
+    flux_out = f.new_empty((s, nzm))
+    win = u.new_empty((s, X, nzm)) if fl is not None and nsteps > 1 else None
+    build.launch(wrapper, nsteps, "mpdata_masked", _ENTRY[f.dtype], f.device,
+                 fl, f, fr, u, w, rho, rhow, adz, f_out, flux_out, win, s, X,
+                 nzm, nx, int(gi0), owned_lo, owned_hi, halo, nsteps,
+                 int(hoist), check_warps(warps))
+    return f_out, flux_out
 
 
 @counted

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from cdk_torch.core.registry import register
+from cdk_torch.core.registry import forms, register
 from cdk_torch.core.trace import span
 from cdk_torch.kernels.mpdata.launch import resident_forms, step_kernel
 from cdk_torch.kernels.mpdata.problem import MpdataData
@@ -92,20 +92,14 @@ def _packed_forms(compute_dtype=None):
     def prepare(data: MpdataData):
         return _invariants(data, compute_dtype or data.f.dtype)
 
-    def _run(aux, data: MpdataData, n: int):
+    def run(aux, data: MpdataData, n: int):
         dt = compute_dtype or data.f.dtype
         f, flux = data.f.to(dt).contiguous(), data.flux.to(dt).contiguous()
         for _ in range(n):
             f, flux = advect_packed(f, *aux, flux, 1)
         return f.to(data.f.dtype), flux.to(data.f.dtype)
 
-    def step(aux, data: MpdataData):
-        return _run(aux, data, 1)
-
-    def loop(data: MpdataData, n: int):
-        return _run(prepare(data), data, n)
-
-    return {"step": step, "prepare": prepare, "loop": loop}
+    return forms(prepare, run)
 
 
 @register(

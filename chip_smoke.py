@@ -714,26 +714,22 @@ def l2_read_rate(dev) -> float:
     the production CKE table (28000 x 100 f32, 11.2 MB): the probe in
     csrc/cke_rows.cu reads it 200 times over through L2 only, on eight
     blocks an SM."""
-    import ctypes
-
     import torch
 
     from cdk_torch.core import build
+    from cdk_torch.core.trace import counted
 
-    fn = build.library().cdk_l2_read_probe
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     buf = torch.ones(28000 * 100, dtype=torch.float32, device=dev)
     blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
     sink = torch.empty(blocks * 256, dtype=torch.float32, device=dev)
     reps = 200
 
-    def probe():
-        build.check(fn(buf.data_ptr(), buf.numel() // 4, reps, blocks, sink.data_ptr(),
-                       torch.cuda.current_stream(dev).cuda_stream), "l2_read_probe")
+    @counted
+    def l2_read_probe():
+        build.launch(l2_read_probe, 1, "l2_read_probe", "cdk_l2_read_probe", dev,
+                     buf, buf.numel() // 4, reps, blocks, sink)
 
-    ms = timed_ms(probe, REPS)
+    ms = timed_ms(l2_read_probe, REPS)
     if float(sink.double().sum()) != buf.numel() * reps:
         fail("the L2 read probe summed the wrong total")
     return buf.numel() * 4 * reps / (ms * 1e-3)

@@ -6,6 +6,7 @@ reuse counters, every kernel wrapper registered with its `launches` and
 timeline and on fixed counters."""
 
 import importlib.util
+from contextlib import nullcontext
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -15,7 +16,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import cdk_torch.kernels  # noqa: F401  (registers the variants)
-from cdk_torch.core import registry, trace
+from cdk_torch.core import build, registry, trace
 from cdk_torch.core.config import BiharmonicConfig, MpdataConfig, with_overrides
 from cdk_torch.dist import mesh as meshmod
 from cdk_torch.dist import mpdata as dist_mp
@@ -166,22 +167,38 @@ def test_wrapper_is_registered_with_launches_and_steps(k):
         assert isinstance(w.depth_launches, dict)
 
 
-def test_counted_runs_in_a_kernel_span_and_counts_only_launches():
+def test_counted_runs_in_a_kernel_span_and_counts_only_launches(monkeypatch):
+    """A call counts only where it launches, through `build.launch`, which
+    adds the launch and its steps to the wrapper it names; a launch whose
+    entry reports an error raises and counts nothing.  The library and
+    the stream are stand-ins, so no card is needed."""
+    calls = []
+    entries = {"cdk_probe": (lambda *a: calls.append(a) or 0, (0, 1)),
+               "cdk_fails": (lambda *a: 700, (0, 1))}
+    monkeypatch.setattr(build, "library", lambda: entries)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 99, raising=False)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+
     @trace.counted
-    def probe(x, launch=False):
+    def probe(x, launch=None):
         if launch:
-            probe.launches += 1
-            probe.steps += 3
+            build.launch(probe, 3, "probe", launch, x.device, x, None, 5)
         return x + 1
 
     try:
         assert "probe.launches" in trace.counts()
+        x = torch.ones(2)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            probe(torch.ones(2))
-            probe(torch.ones(2), launch=True)
+            probe(x)
+            probe(x, launch="cdk_probe")
         assert _host_spans(prof) == {"cdk.kernel": 2}
+        assert calls == [(x.data_ptr(), None, 5, 99)]
         assert (probe.launches, probe.steps) == (1, 3)
         assert trace.counts()["probe.steps"] == 3
+        with pytest.raises(RuntimeError, match="probe: CUDA error 700"):
+            probe(x, launch="cdk_fails")
+        assert (probe.launches, probe.steps) == (1, 3)
         trace.count("probe_counter", 2)
         assert trace.counts()["probe_counter"] == 2
     finally:
