@@ -13,15 +13,21 @@ same variant names (`fused_operator_rowchain`, `_x3`, `_sq`, `_sq_x3`).
 The x3 forms split the operator they apply into bf16 hi/lo parts: A in the
 bridges, A² (or A) in the step.
 
-The CUDA kernel is csrc/biharmonic_dss2d_rowchain.cu's step_kernel, a warp
-per element of a row tile, in three modes: the step computes each
-element's F once per tile and exchanges the j boundary points; bridge-in
-applies A once and exchanges them the same way; bridge-out applies A once
-to ipass(t)·w and exchanges nothing.  Their bf16x3 forms run on the tensor
-cores (mma.sync), which sum a product's terms in their own order, so they
-match the plain version within the registered 5e-5, not bit for bit, and
-still equal each other (depth k and k depth-1 launches, the padded mode)
-bit for bit.  Beside them here:
+The CUDA kernels are in csrc/biharmonic_dss2d_rowchain.cu.  The step is
+sweep_kernel, a row sweep: a block walks a range of (column tile, row)
+units of one j-chunk of 24 elements (8 at f64) and a halo element on each
+side down the torus row by row (STEP_BAND rows at least), keeping the row
+it just read (the carry of its i = np-1 points) and the next row it loaded
+on chip, so each t value is read once a step; one producer warp keeps the
+next rows' TMA loads in flight, and the consumer warps compute F in place,
+exchange the j boundary points and store.  The bridges are step_kernel, a
+warp per element of a row tile: bridge-in applies A once and exchanges the
+j boundary points; bridge-out applies A once to ipass(t)·w and exchanges
+nothing.  Their bf16x3 forms run on the tensor cores (mma.sync), which sum
+a product's terms in their own order, so they match the plain version
+within the registered 5e-5, not bit for bit, and still equal each other
+(depth k and k depth-1 launches, the padded mode) bit for bit; the exact
+and f64 forms are bit for bit the plain version.  Beside them here:
 the plain PyTorch version of each (the CPU path, and what the kernels are
 compared with on the card) and the three wrappers, each with a launch
 counter; `rowchain_step.depth_launches` also counts the step's launches by
@@ -77,14 +83,15 @@ NPG = 4
 NPTS = NPG * NPG
 PRECISIONS = ("highest", "bf16x3")
 # t-steps per step launch in `loop`, from chip_smoke.py's depth sweep at
-# production f32 on the H100 (PERF.md §6), us per step at depth 1 / 2 / 3 /
-# 4 / 8:
-#   A·A      347.8 / 348.9 / 348.2 / 348.5 / 347.9
-#   x3       271.3 / 270.1 / 269.6 / 269.2 / 268.5
-#   sq       273.8 / 274.1 / 274.3 / 272.4 / 271.4
-#   sq_x3    253.8 / 252.3 / 251.8 / 250.8 / 250.1
+# production f32 on the H100 (PERF.md §6, the row sweep), us per step
+# at depth 1 / 2 / 3 / 4 / 8:
+#   A.A      408.1 / 406.0 / 404.4 / 409.8 / 408.3
+#   x3       258.2 / 259.1 / 257.2 / 257.2 / 256.2
+#   sq       258.7 / 257.4 / 256.3 / 256.1 / 256.6
+#   sq_x3    259.2 / 258.3 / 257.8 / 258.0 / 257.0
 # flat: every step passes through device memory, so the depth saves only
-# launches; depth 4 is within 0.5 % of the fastest for every form
+# launches; depth 4 is within 0.4 % of the fastest for every form but A.A,
+# whose 1.3 % spread follows no depth
 DEPTH = 4
 
 
@@ -95,10 +102,13 @@ def loop_depth(precision: str, precomposed: bool) -> int:
 
 
 BRIDGE_IN, STEP, BRIDGE_OUT = 0, 1, 2  # the kernels' modes
-# the step kernel's tile at f32: this many elements of one element row,
+# the step kernel's j-chunk at f32: this many elements of one element row,
 # plus one halo element on each side (step_elems in the CUDA source; 8 at
 # f64)
 STEP_ELEMS = 24
+# the fewest rows of a block's range of a step, where the step has them
+# (BAND in the CUDA source): a block sweeps down its range row by row
+STEP_BAND = 16
 
 
 def _prec(precision: str) -> str:

@@ -10,8 +10,8 @@ Phases, each printing its result; the first failure exits non-zero:
               name and power limit (nvidia-smi)
   2. build    compile cdk_torch/csrc/*.cu with nvcc (sm_90a); print ptxas's
               registers and spills of the kernels redesigned for Hopper:
-              K14's bf16x3 ring kernel, the rowchain kernel in its three
-              modes (K15-K18), K19's two kernels, the MPDATA sweep (every
+              K14's bf16x3 ring kernel, the rowchain bridges (K15, K17)
+              and step sweep (K16, K18), K19's two kernels, the MPDATA sweep (every
               instantiation: staged K6-K8, hoisted K2/K9, masked K20-K25),
               K12, and K3 and K13 (with K13's transpose)
   3. kernels  each hand-written kernel against its plain PyTorch version on
@@ -155,8 +155,8 @@ PORTED = {**dict.fromkeys(("K1", "K2"), 1), **dict.fromkeys(("K3", "K11", "K12",
           **dict.fromkeys(("K4", "K5", "K6", "K7", "K8", "K9", "K10"), 4),
           **dict.fromkeys(("K20", "K21", "K22", "K23", "K24", "K25"), 5),
           **dict.fromkeys(("K14w", "K16p", "K17p", "K18p"), 6)}
-REDESIGNED = {"K14": (7, 1.6638), "K14w": (7, 3.8402), "K16": (7, 0.5580),
-              "K16p": (7, 0.5633), "K18": (7, 1.3699), "K18p": (7, 2.3751),
+REDESIGNED = {"K14": (7, 1.6638), "K14w": (7, 3.8402), "K16": (21, 0.2552),
+              "K16p": (21, 0.2564), "K18": (21, 1.1170), "K18p": (21, 1.0512),
               "K6": (8, 0.5603), "K7": (8, 0.5615), "K8": (8, 1.8192),
               "K12": (8, 2.0123), "K2": (9, 0.7962), "K9": (9, 0.7968),
               "K20": (9, 0.7565), "K21": (9, 0.7535), "K22": (9, 0.7534),
@@ -328,14 +328,15 @@ def phase_build():
     print(f"[2 build] {built.path.name}: nvcc {built.seconds:.1f} s")
     print(built.log.strip(), file=sys.stderr)
     # ptxas's registers and spills of the kernels redesigned for Hopper:
-    # K14's bf16x3 ring, the rowchain kernel in its three modes (0 bridge_in,
-    # 1 step, 2 bridge_out; tensor cores for x3) and K19's two kernels (x3 on
-    # the tensor cores; exact), the MPDATA sweep (L
+    # K14's bf16x3 ring, the rowchain bridges (mode 0 bridge_in, 2
+    # bridge_out; tensor cores for x3) and step (the sweep), K19's two
+    # kernels (x3 on the tensor cores; exact), the MPDATA sweep (L
     # levels a lane; its staged, hoisted and masked modes), K12, and K3 and
     # K13 (vec: 16-byte level groups; K13's first kernel the transpose), with
     # their static shared memory (the others' is dynamic, sized by their
     # launchers)
-    flag_names = {"step_kernel": ("x3", "sq"), "dss_ring_x3_kernel": ("sq",),
+    flag_names = {"step_kernel": ("x3",), "sweep_kernel": ("x3", "sq"),
+                  "dss_ring_x3_kernel": ("sq",),
                   "cke_onehot_kernel": ("bf16",), "cke_rows_kernel": ("vec",),
                   "cke_lanegather_kernel": ("vec",),
                   "mpdata_sweep_kernel": ("split", "hoist", "masked", "lanes")}
@@ -344,7 +345,7 @@ def phase_build():
                          r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
                          r"(\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?",
                          built.log):
-        k = re.search(r"(dss_ring_x3_kernel|step_kernel|mpdata_sweep_kernel|"
+        k = re.search(r"(dss_ring_x3_kernel|step_kernel|sweep_kernel|mpdata_sweep_kernel|"
                       r"cke_onehot_kernel|cke_rows_kernel|cke_lanegather_kernel|"
                       r"transpose_kernel|dss2d_x3_kernel|dss2d_exact_kernel)(?:I(\w*?)EEv)?",
                       m.group(1))

@@ -489,6 +489,50 @@ def test_rowchain_step_straddles_its_tiles(cuda, ey):
             assert torch.equal(got, one), (dtype, prec, sq)
 
 
+@pytest.mark.parametrize("ex", [rc.STEP_BAND - 1, rc.STEP_BAND + 1,
+                                2 * rc.STEP_BAND + 3])
+def test_rowchain_step_straddles_its_bands(cuda, ex):
+    """The step sweeps each block's range of (column tile, row) units down
+    its rows, no range under STEP_BAND rows, the rows just above and below a
+    band read as quarters: tori a row short of a band, a row over and two
+    bands and three, at two column tiles (one ragged) and two j-chunks (four
+    at f64), all four forms and f64 against the plain version at depths 1
+    and 3 (bf16x3 within the gate, the exact forms bitwise), each depth-3
+    step bitwise three depth-1 launches; and the padded mode on a shard of
+    ex rows padded by 3, whose ranges move their band edges from step to
+    step: K18p bitwise three K16p launches on shrinking windows."""
+    ey, ncol, kp = 25, 40, 3
+    L64, w64, t64 = _dss_operands(ex * ey, ncol, ex)
+    Lp64, wp64, tp64 = _dss_operands((ex + 2 * kp) * ey, ncol, ex + 1)
+    for dtype, prec, gate in DSS_FORMS:
+        L, w, t = (x.to(cuda, dtype) for x in (L64, w64, t64))
+        for sq in (False, True):
+            F = precompose_operator(L) if sq else L
+            one = t
+            for _ in range(3):
+                one = rc.rowchain_step(F, w, one, ex, ey, 1, prec, sq)
+            for k in (1, 3):
+                got = rc.rowchain_step(F, w, t, ex, ey, k, prec, sq)
+                ref = rc.rowchain_step_plain(F, w, t, ex, ey, k, prec, sq)
+                if prec == "highest":
+                    assert torch.equal(got, ref), (dtype, sq, k)
+                else:
+                    assert rel_l2(got, ref) < gate, (dtype, sq, k)
+            assert torch.equal(got, one), (dtype, prec, sq)
+        Lp, wp, tp = (x.to(cuda, dtype) for x in (Lp64, wp64, tp64))
+        Fp = precompose_operator(Lp)[ey:-ey]
+        wp = wp[ey:-ey]
+        deep = rc.rowchain_step_padded(Fp, wp, tp, ex, ey, kp, prec, True, padded_out=True)
+        one = tp
+        for j in range(kp):  # kp K16p launches, one row fewer per side
+            rows = ex + 2 * (kp - 1 - j)
+            one = rc.rowchain_step_padded(Fp[j * ey:(j + rows) * ey],
+                                          wp[j * ey:(j + rows) * ey], one, rows, ey, 1,
+                                          prec, True)
+        torch.cuda.synchronize()
+        assert torch.equal(deep[kp * ey:(kp + ex) * ey], one), (dtype, prec)
+
+
 @pytest.mark.parametrize("kernel,nelemd", [("biharmonic_dss", 16),
                                            ("biharmonic_dss2d", 12)])
 def test_driver_runs_dss_families_through_the_kernels(cuda, kernel, nelemd):
