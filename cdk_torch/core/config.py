@@ -8,8 +8,9 @@ in both; only the dtype names map to torch dtypes.
 
 from __future__ import annotations
 
+import inspect
 import re
-from dataclasses import dataclass, fields, replace
+from dataclasses import InitVar, dataclass, fields, replace
 from pathlib import Path
 from typing import Any
 
@@ -89,6 +90,11 @@ class MpdataConfig:
         return torch_dtype(self.dtype)
 
 
+# CkeConfig's connectivities, and its init-only settings
+MESHES = ("random", "planar_hex")
+CKE_SETTINGS = ("mesh", "nx", "ny", "ntracers")
+
+
 @dataclass(frozen=True)
 class CkeConfig:
     """MPAS-Ocean nested-loop (CKE) problem (reference nested.nml:1-7,
@@ -96,7 +102,19 @@ class CkeConfig:
 
     nedges edges, each taking its flux from nadv contributing cells of
     ncells, over nvertlevels levels; coef3rdorder weights the 3rd-order
-    term and errtol is the reference's per-point relative gate."""
+    term and errtol is the reference's per-point relative gate.
+
+    Two settings of the port's own are init-only (`InitVar`), so the
+    fields, and `asdict`, stay the JAX package's: `mesh`, the
+    connectivity, "random" (the miniapp's random cells, the default) or
+    "planar_hex", MPAS-Tools' periodic hexagonal mesh of nx x ny cells
+    (`kernels/cke/mesh.py`; it sets ncells = nx*ny, nedges = 3*nx*ny and
+    nadv = 10, and refuses other values of them); and `ntracers`, the
+    tracers of a group, each with its own (ncells, nvertlevels) table (1:
+    one table, the miniapp's).  They are kept as attributes, which
+    `replace` and `with_overrides` carry over, and `==`, `hash` and `repr`
+    take them with the fields.
+    """
 
     niters: int = 100
     nedges: int = 25600
@@ -108,10 +126,49 @@ class CkeConfig:
     seed: int = 20260816
     dtype: str = "float64"
     device_init: bool = False
+    mesh: InitVar[str] = "random"
+    nx: InitVar[int] = 0
+    ny: InitVar[int] = 0
+    ntracers: InitVar[int] = 1
+
+    def __post_init__(self, mesh, nx, ny, ntracers):
+        if mesh not in MESHES:
+            raise ValueError(f"CkeConfig: mesh {mesh!r} is none of {MESHES}")
+        if ntracers < 1:
+            raise ValueError(f"CkeConfig: ntracers {ntracers} < 1")
+        if mesh == "planar_hex":
+            if nx < 4 or ny < 4 or ny % 2:
+                raise ValueError(f"CkeConfig: a planar_hex mesh needs nx >= 4 "
+                                 f"and an even ny >= 4, not {nx} x {ny}")
+            for name, value in (("ncells", nx * ny), ("nedges", 3 * nx * ny),
+                                ("nadv", 10)):
+                given = getattr(self, name)
+                if given not in (value, getattr(CkeConfig, name)):
+                    raise ValueError(f"CkeConfig: {name} {given} given with "
+                                     f"the {nx} x {ny} planar_hex mesh, "
+                                     f"which has {value}")
+                object.__setattr__(self, name, value)
+        for name, value in zip(CKE_SETTINGS, (mesh, nx, ny, ntracers)):
+            object.__setattr__(self, name, value)
+
+    def _items(self) -> tuple:
+        return tuple((name, getattr(self, name)) for name in
+                     (*(f.name for f in fields(self)), *CKE_SETTINGS))
+
+    def __eq__(self, other):
+        if other.__class__ is not self.__class__:
+            return NotImplemented
+        return self._items() == other._items()
+
+    def __hash__(self):
+        return hash(self._items())
+
+    def __repr__(self):
+        return f"CkeConfig({', '.join(f'{k}={v!r}' for k, v in self._items())})"
 
     @property
-    def grid_points(self) -> int:
-        return self.nedges * self.nvertlevels
+    def grid_points(self) -> int:  # flux points a step, every tracer's
+        return self.nedges * self.nvertlevels * self.ntracers
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -161,8 +218,9 @@ def cke_config_from_namelist(path: str | Path, **overrides) -> CkeConfig:
 
 
 def with_overrides(cfg, **kw):
-    """Return a copy of a frozen config dataclass with fields replaced."""
-    valid = {f.name for f in fields(cfg)}
+    """Return a copy of a frozen config dataclass with fields (and its
+    init-only settings, such as CkeConfig's mesh) replaced."""
+    valid = set(inspect.signature(type(cfg)).parameters)
     bad = set(kw) - valid
     if bad:
         raise ValueError(f"unknown config fields for {type(cfg).__name__}: {bad}")

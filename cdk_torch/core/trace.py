@@ -22,6 +22,8 @@ itself too; a reader takes the union of a name's intervals.
                        `exchange_strips`, `ring_strips`, `ring_exchange`
     cdk.dist.gather    the shards' outputs stacked and their partials
                        summed (`dist/mpdata.py`, `dist/biharmonic.py`)
+    cdk.cke.mask       K3's masked tracer table, tracer · cellMask, one a
+                       tracer (`kernels/cke/rows.py`, the `pallas_rows` step)
 
 `counted(fn)` gives a kernel wrapper its `launches` and `steps`, registers
 it, and runs each call inside `span("cdk.kernel")`; `build.launch`, the
@@ -38,6 +40,9 @@ them, so a CPU call, which runs the plain version, counts nothing.
                        `rowchain_bridge_in`) given the state in its own
                        (e, q, k, i, j) layout, which the kernel then reads
                        where it lies, with no lane copy before it
+    cke_mesh_passes    a CKE step's passes over the edge fields
+                       (connectivity, coefficients, ntf, advMask): one a
+                       tracer table (`kernels/cke/problem.py` `each_tracer`)
 
 `counts()` is a snapshot of both, so a caller reads what a stretch of work
 did as the difference of two snapshots.

@@ -16,7 +16,6 @@ from dataclasses import dataclass, replace as _dc_replace
 from typing import Any, Callable
 
 import numpy as np
-import torch
 
 from cdk_torch.core import config as cfgmod
 from cdk_torch.core.norms import pointwise_check, rel_l1, rel_l2
@@ -139,17 +138,24 @@ def _loop_mpdata(step2, aux, n):
 
 
 def _loop_cke(step2, aux, n):
-    """n flux iterations; tracerCur *= cellMask each pass like the
+    """n flux iterations; tracerCur *= cellMask between passes like the
     reference's forms 2/3 (nested.F90:297-310): idempotent in value, but
     the tracer of each pass is the product of the one before.  Returns the
-    last flux (zeros for n = 0)."""
+    last flux (zeros for n = 0): (E, K), or for a tracer group (T, C, K)
+    every tracer's flux of the last iteration, (T, E, K), each step run
+    once per tracer (`problem.each_tracer`)."""
+    from cdk_torch.kernels.cke import problem
 
     def run(data):
-        tracer = data.tracer
-        flx = torch.zeros_like(data.ntf)
-        for _ in range(n):
-            flx = step2(aux, _dc_replace(data, tracer=tracer))
-            tracer = tracer * data.cell_mask
+        tracer, flx = data.tracer, None
+        for i in range(n):
+            if i:
+                tracer = tracer * data.cell_mask
+            flx = problem.each_tracer(step2, aux,
+                                      _dc_replace(data, tracer=tracer))
+        if flx is None:
+            return data.ntf.new_zeros((*data.tracer.shape[:-2],
+                                       *data.ntf.shape))
         return flx
 
     return run

@@ -15,11 +15,21 @@ JAX package's `cdk_tpu/kernels/cke/problem.py`:
 Layout is the JAX package's: C-order (nEdges, nAdv) / (nEdges, nVertLevels)
 / (nCells, nVertLevels) with the vertical column innermost, 0-based cell
 indices.
+
+Two settings of the port's own (CkeConfig's init-only `mesh` and
+`ntracers`): on the "planar_hex" mesh advCellsForEdge is MPAS-Ocean's
+stencil on that mesh (`mesh.py`) and its random draw is left out, every
+other draw in the same order; with ntracers T > 1 the tracer is a group
+(T, nCells, nVertLevels), each tracer's table contiguous as tracerCur is,
+drawn in one call where the one table was.  A variant's step takes one
+table; the family's loop runs it over a group with `each_tracer`, into
+(T, nEdges, nVertLevels), every tracer's flux from its own table.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+import inspect
+from dataclasses import dataclass, fields, replace
 from typing import Mapping
 
 import numpy as np
@@ -27,6 +37,8 @@ import torch
 
 from cdk_torch.core.config import CkeConfig
 from cdk_torch.core.frng import HostRng
+from cdk_torch.core.trace import count
+from cdk_torch.kernels.cke import mesh as _mesh
 
 _INT_FIELDS = ("adv_cells", "min_level", "max_level")
 
@@ -38,7 +50,8 @@ class CkeData:
     adv_cells:   (nedges, nadv) int32 — contributing cell per (edge, i)
     adv_coefs:   (nedges, nadv)       — 2nd-order weights
     adv_coefs3:  (nedges, nadv)       — 3rd-order weights (× coef3rdOrder)
-    tracer:      (ncells, nvert)      — zero outside [kmin, kmax]
+    tracer:      (ncells, nvert)      — zero outside [kmin, kmax]; a
+                 group: (ntracers, ncells, nvert)
     cell_mask:   (ncells, nvert)      — 1 inside [kmin, kmax], else 0
     ntf:         (nedges, nvert)      — normalThicknessFlux
     adv_mask:    (nedges, nvert)      — advMaskHighOrder (all ones)
@@ -68,6 +81,28 @@ class CkeData:
         return CkeData(**moved)
 
 
+def each_tracer(step2, aux, data: CkeData) -> torch.Tensor:
+    """One step of a CKE variant, `step2(aux, data)` over one (C, K) tracer
+    table, over data whose tracer is one table or a group (T, C, K).  A
+    group's step runs it once per tracer, on that tracer's own table, into
+    (T, E, K): a step2 that takes `out` (K3's) writes the flux into the
+    tracer's slice, another's is copied there.  Each run is one pass over
+    the edge fields (connectivity, coefficients, ntf, advMask): counter
+    `cke_mesh_passes`."""
+    if data.tracer.dim() == 2:
+        count("cke_mesh_passes")
+        return step2(aux, data)
+    into = "out" in inspect.signature(step2).parameters
+    out = data.ntf.new_empty((data.tracer.shape[0], *data.ntf.shape))
+    for dst, tracer in zip(out, data.tracer):
+        count("cke_mesh_passes")
+        d = replace(data, tracer=tracer)
+        got = step2(aux, d, out=dst) if into else step2(aux, d)
+        if got is not dst:
+            dst.copy_(got)
+    return out
+
+
 def from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
                dtype: torch.dtype = torch.float64) -> CkeData:
     """CkeData from a mapping of field name -> array (e.g. the JAX
@@ -94,6 +129,7 @@ def init_data(cfg: CkeConfig = CkeConfig(), device="cpu") -> CkeData:
         return _init_data_device(cfg, torch.device(device))
     gen = HostRng(cfg.seed)
     c, e, kv, a = cfg.ncells, cfg.nedges, cfg.nvertlevels, cfg.nadv
+    group = (cfg.ntracers,) if cfg.ntracers > 1 else ()
 
     # topography: depth = min(max(3, round(rand·2·nVert)), nVert)  (1-based)
     depth = np.minimum(
@@ -104,12 +140,16 @@ def init_data(cfg: CkeConfig = CkeConfig(), device="cpu") -> CkeData:
 
     k_idx = np.arange(kv)[None, :]
     active = (k_idx >= min_level[:, None]) & (k_idx <= max_level[:, None])
-    tracer = np.where(active, 15.0 * gen.uniform((c, kv)), 0.0)
+    tracer = np.where(active, 15.0 * gen.uniform((*group, c, kv)), 0.0)
     cell_mask = active.astype(np.float64)
 
-    adv_cells = np.minimum(
-        (c * gen.uniform((e, a))).astype(np.int64), c - 1
-    ).astype(np.int32)
+    if cfg.mesh == "planar_hex":
+        adv_cells = _mesh.adv_cells_for_edge(
+            _mesh.planar_hex(cfg.nx, cfg.ny)).numpy()
+    else:
+        adv_cells = np.minimum(
+            (c * gen.uniform((e, a))).astype(np.int64), c - 1
+        ).astype(np.int32)
     adv_coefs = 20.0 * gen.uniform((e, a))
     adv_coefs3 = 21.0 * gen.uniform((e, a))
 
@@ -123,12 +163,13 @@ def init_data(cfg: CkeConfig = CkeConfig(), device="cpu") -> CkeData:
 
 def _init_data_device(cfg: CkeConfig, device: torch.device) -> CkeData:
     """float32 uniforms from one seeded generator, in the host draw order,
-    cast to the working dtype: random topography depth, masked tracer,
-    random connectivity."""
+    cast to the working dtype: random topography depth, masked tracer(s),
+    random connectivity (or the mesh's)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     dt = cfg.torch_dtype
     c, e, kv, a = cfg.ncells, cfg.nedges, cfg.nvertlevels, cfg.nadv
+    group = (cfg.ntracers,) if cfg.ntracers > 1 else ()
 
     def u(*shape):
         return torch.rand(shape, generator=gen, device=device,
@@ -139,10 +180,14 @@ def _init_data_device(cfg: CkeConfig, device: torch.device) -> CkeData:
     max_level = depth - 1
     k_idx = torch.arange(kv, device=device)[None, :]
     active = (k_idx >= min_level[:, None]) & (k_idx <= max_level[:, None])
-    tracer = torch.where(active, 15.0 * u(c, kv), 0.0).to(dt)
+    tracer = torch.where(active, 15.0 * u(*group, c, kv), 0.0).to(dt)
     cell_mask = active.to(dt)
-    adv_cells = torch.randint(0, c, (e, a), generator=gen, device=device,
-                              dtype=torch.int32)
+    if cfg.mesh == "planar_hex":
+        adv_cells = _mesh.adv_cells_for_edge(
+            _mesh.planar_hex(cfg.nx, cfg.ny, device))
+    else:
+        adv_cells = torch.randint(0, c, (e, a), generator=gen, device=device,
+                                  dtype=torch.int32)
     return CkeData(
         adv_cells,
         (20.0 * u(e, a)).to(dt),

@@ -26,7 +26,7 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
-from cdk_torch.core.trace import counted
+from cdk_torch.core.trace import counted, span
 from cdk_torch.kernels.cke.gather_peradv import gather_flux as cke_rows_plain
 from cdk_torch.kernels.cke.launch import check_inputs
 from cdk_torch.kernels.cke.problem import CkeData
@@ -34,18 +34,22 @@ from cdk_torch.kernels.cke.reference import coef3_of
 
 
 @counted
-def cke_rows(cells, c1, c3, t, ntf, adv_mask, coef3: float):
-    """The flux of cke_rows_plain.  CUDA tensors launch the kernel (never
-    anything else); CPU tensors run cke_rows_plain.  Cell indices lie in
-    [0, C)."""
+def cke_rows(cells, c1, c3, t, ntf, adv_mask, coef3: float, out=None):
+    """The flux of cke_rows_plain, written into `out` (E, K) where given
+    (a tracer group's slice) and returned.  CUDA tensors launch the kernel
+    (never anything else); CPU tensors run cke_rows_plain.  Cell indices
+    lie in [0, C)."""
     e, a = cells.shape
     c, k = t.shape
+    outs = {} if out is None else {"out": (out, (e, k))}
     check_inputs("cke_rows", t.dtype, t.device, cells=(cells, (e, a)),
                  c1=(c1, (e, a)), c3=(c3, (e, a)), t=(t, (c, k)),
-                 ntf=(ntf, (e, k)), adv_mask=(adv_mask, (e, k)))
+                 ntf=(ntf, (e, k)), adv_mask=(adv_mask, (e, k)), **outs)
     if t.device.type == "cpu":
-        return cke_rows_plain(cells, c1, c3, t, ntf, adv_mask, coef3)
-    out = torch.empty_like(ntf)
+        flx = cke_rows_plain(cells, c1, c3, t, ntf, adv_mask, coef3)
+        return flx if out is None else out.copy_(flx)
+    if out is None:
+        out = torch.empty_like(ntf)
     build.launch(cke_rows, 1, "cke_rows", "cdk_cke_rows_f32"
                  if t.dtype == torch.float32 else "cdk_cke_rows_f64", t.device,
                  cells, c1, c3, t, ntf, adv_mask, out, e, c, a, k, coef3)
@@ -61,11 +65,15 @@ def cke_rows(cells, c1, c3, t, ntf, adv_mask, coef3: float):
     experimental=True,
 )
 def make_pallas_rows(cfg):
+    """(prepare, step2): no set-up; step2 takes `out`, the slice of a
+    tracer group's flux it writes (`problem.each_tracer`).  The masked
+    table is built under span `cdk.cke.mask`."""
     c3 = coef3_of(cfg)
 
-    def step(data: CkeData) -> torch.Tensor:
-        return cke_rows(data.adv_cells, data.adv_coefs, data.adv_coefs3,
-                        data.tracer * data.cell_mask, data.ntf,
-                        data.adv_mask, c3)
+    def step2(aux, data: CkeData, out=None) -> torch.Tensor:
+        with span("cdk.cke.mask"):
+            t = data.tracer * data.cell_mask
+        return cke_rows(data.adv_cells, data.adv_coefs, data.adv_coefs3, t,
+                        data.ntf, data.adv_mask, c3, out)
 
-    return step
+    return (lambda data: ()), step2

@@ -83,7 +83,7 @@ def make_staged_consume(cfg):
         """The staging buffer, allocated once (untimed); every step
         overwrites it."""
         e, a = data.adv_cells.shape
-        return torch.empty((a, e, data.tracer.shape[1]),
+        return torch.empty((a, e, data.ntf.shape[1]),
                            dtype=data.tracer.dtype, device=data.tracer.device)
 
     def step2(buf, data: CkeData) -> torch.Tensor:

@@ -38,7 +38,10 @@ Phases, each printing its result; the first failure exits non-zero:
               and f64) and K13 at the shipped 25600 x 2800 x 100, and K3
               and K13 also at the production 256000 x 28000 x 100 (beside
               them torch.sparse.mm of the prebuilt CSR [A1; A3], and the
-              floor their E*A*K gathered values set at the L2 rate); K14
+              floor their E*A*K gathered values set at the L2 rate), and
+              K3 on the cell mpaso.tracers' 486 x 488 periodic hexagonal
+              mesh (711504 x 237168 x 60, f32) through out= into one
+              tracer's slice of a group, bitwise its plain version; K14
               (four forms), K19 (two forms) and the rowchain's
               K15, K17 and step (K16 at depth 1, K18 deeper) at the
               shipped 16 x 72 x 40 (f32 and f64) and the production
@@ -185,6 +188,9 @@ def table_row(k: str, row: dict) -> str:
     if "ms_f64" in row:
         ms += f"; f64 {row['ms_f64']:.4f}"
         lib += f"; f64 {row['library_ms_f64']:.4f}"
+    if "mpaso_ms" in row:  # K3 on the cell mpaso.tracers' mesh
+        ms += f"; mpaso hex f32 {row['mpaso_ms']:.4f} (bound {row['mpaso_bound_ms']:.4f})"
+        lib += f"; mpaso hex {row['mpaso_library_ms']:.4f}"
     if "shipped_ms" in row:  # a kernel whose path launches it at the shipped size
         ms += f"; shipped f64 {row['shipped_ms']:.4f} (bound {row['shipped_bound_ms']:.4f})"
     return (f"| {k} | `{row['replaces'].removeprefix('cdk_tpu/kernels/')}` | {status} | "
@@ -917,7 +923,63 @@ def phase_cke_kernels(dev, card):
             del d, t, edge, ef, trans, cases
             if label == "shipped":
                 del staged
+    rows["K3"].update(phase_cke_mesh(dev, card, l2_rate))
     return rows
+
+
+def phase_cke_mesh(dev, card, l2_rate: float) -> dict:
+    """K3 as the benchmark cell mpaso.tracers runs it: on MPAS-Tools'
+    periodic hexagonal mesh of EC30to60E2r2's size (486 x 488 cells,
+    711,504 edges, nAdv 10) at 60 levels, f32, one tracer of a group of
+    two written through out= into its slice of the (T, E, K) flux.  Held
+    bitwise to its plain version, the other slice left untouched; timed
+    beside its bound, the gathered-row floor and torch.sparse.mm of the
+    prebuilt CSR [A1; A3].  Returns the K3 row's mpaso_* entries."""
+    import torch
+
+    from cdk_torch.core.config import CkeConfig
+    from cdk_torch.kernels.cke import problem as cp
+    from cdk_torch.kernels.cke.reference import coef3_of
+    from cdk_torch.kernels.cke.rows import cke_rows, cke_rows_plain
+
+    cfg = CkeConfig(mesh="planar_hex", nx=486, ny=488, nvertlevels=60,
+                    ntracers=2, dtype="float32", device_init=True)
+    d = cp.init_data(cfg, dev)
+    c3 = coef3_of(cfg)
+    t = d.tracer[1] * d.cell_mask
+    args = (d.adv_cells, d.adv_coefs, d.adv_coefs3, t, d.ntf, d.adv_mask, c3)
+    group = torch.full((2, cfg.nedges, cfg.nvertlevels), float("nan"),
+                       dtype=t.dtype, device=dev)
+
+    def kernel():
+        return cke_rows(*args, out=group[1])
+
+    out = kernel()
+    ref = cke_rows_plain(*args)
+    torch.cuda.synchronize()
+    rel, mae, big = errors(group[1], ref, "l1")
+    bitwise = torch.equal(group[1], ref)
+    into = out.data_ptr() == group[1].data_ptr()
+    untouched = bool(group[0].isnan().all())
+    ms = timed_ms(kernel, REPS)
+    a13 = cke_csr(d.adv_cells, d.adv_coefs, d.adv_coefs3, cfg.ncells)
+    sparse_ms = timed_ms(lambda: torch.sparse.mm(a13, t), REPS)
+    del a13
+    floor_ms = cfg.nedges * cfg.nadv * cfg.nvertlevels * t.element_size() / l2_rate * 1e3
+    here = bound((*args[:-1], group[1]),
+                 cke_ops(cfg.nedges, cfg.nvertlevels, cfg.nadv))
+    print(f"[3 K3] mpaso_ec30to60 486x488 hex {cfg.nedges}x{cfg.ncells}x"
+          f"{cfg.nvertlevels} A={cfg.nadv} float32, out= a group slice: rel_l1 "
+          f"{rel:.3e} max_abs {mae:.3e} of {big:.3e} bitwise={bitwise} "
+          f"into_slice={into} other_slice_untouched={untouched}; kernel {ms:.4f} ms; "
+          f"bound {here['bound_ms']:.4f} ms (bytes once); gathered-row floor "
+          f"{floor_ms:.4f} ms; torch.sparse.mm of the prebuilt CSR [A1; A3] "
+          f"{sparse_ms:.4f} ms [{card}]")
+    if not (bitwise and into and untouched and big > 0):
+        fail(f"K3 on the mpaso_ec30to60 mesh through out=: bitwise={bitwise} "
+             f"into_slice={into} other_slice_untouched={untouched}")
+    return dict(mpaso_ms=ms, mpaso_bound_ms=here["bound_ms"],
+                mpaso_library_ms=sparse_ms, mpaso_l2_floor_ms=floor_ms)
 
 
 def phase_dss_kernels(dev, card):

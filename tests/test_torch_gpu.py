@@ -1,7 +1,7 @@
 """Tests of the port that need the card: each hand-written kernel against
 its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
-K12, K13 at ragged shapes, K3 off 16-byte alignment and K12 on
-adversarial connectivity, K14, K19 and the rowchain kernels K15-K18 on
+K12, K13 at ragged shapes, K3 off 16-byte alignment, K3 on the planar
+hexagonal mesh over a tracer group and K12 on adversarial connectivity, K14, K19 and the rowchain kernels K15-K18 on
 small and odd rings and tori (the tensor-core bf16x3 forms of K14 and the
 rowchain step also at ragged m-tiles and across the step's row tiles), K4,
 K5, the staged MPDATA kernel behind K6, K7 and K8, K9 and K10, the
@@ -31,6 +31,7 @@ from cdk_torch.core.platform import resolve_device
 from cdk_torch.core import registry, trace
 from cdk_torch.core.registry import UnsupportedConfigError, variants
 from cdk_torch.harness.driver import run_kernel
+from cdk_torch.harness.specs import get_spec
 from cdk_torch.kernels.biharmonic import dss2d_resident as dres2
 from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
 from cdk_torch.kernels.biharmonic import dss_resident as dres
@@ -248,6 +249,31 @@ def test_cke_rows_off_alignment_matches_plain(cuda):
         torch.cuda.synchronize()
         assert krows.cke_rows.launches == before + 1
         assert torch.equal(out, krows.cke_rows_plain(*args))
+
+
+@pytest.mark.parametrize("nx,ny", [(24, 20), (486, 488)])
+def test_cke_rows_on_the_planar_hex_mesh_matches_plain(cuda, nx, ny):
+    """K3 on MPAS-Tools' periodic hexagonal mesh at 60 levels (a small one
+    and mpaso_ec30to60's 486 x 488), f32 and f64, each tracer of a group of
+    two through the family's loop, one launch a tracer: bitwise its plain
+    version."""
+    for dtype in ("float32", "float64"):
+        cfg = CkeConfig(mesh="planar_hex", nx=nx, ny=ny, nvertlevels=60,
+                        ntracers=2, dtype=dtype, device_init=True)
+        d = cp.init_data(cfg, cuda)
+        step2, aux, _ = registry._materialize(
+            registry.get("cke", "pallas_rows"), cfg, d)
+        before = krows.cke_rows.launches
+        got = get_spec("cke").loop_runner(step2, aux, 1)(d)
+        torch.cuda.synchronize()
+        assert krows.cke_rows.launches == before + 2
+        assert got.shape == (2, 3 * nx * ny, 60)
+        for i in range(2):
+            want = krows.cke_rows_plain(
+                d.adv_cells, d.adv_coefs, d.adv_coefs3,
+                d.tracer[i] * d.cell_mask, d.ntf, d.adv_mask, coef3_of(cfg))
+            assert float(want.abs().max()) > 0
+            assert torch.equal(got[i], want), (dtype, i)
 
 
 def _adversarial_cells(e, c, a, rng):
