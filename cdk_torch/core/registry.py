@@ -7,8 +7,11 @@ same verification gate in both packages.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable
+
+from cdk_torch.core.trace import count, span
 
 _REGISTRY: dict[str, dict[str, "Variant"]] = {}
 
@@ -80,6 +83,42 @@ def forms(prepare, run) -> dict:
         return run(prepare(data), data, n)
 
     return {"prepare": prepare, "step": step, "loop": loop}
+
+
+def keep_last(build, key, counter: str | None = None):
+    """`build(*args)`, a set-up, with a slot for its last result, run under
+    span `cdk.prepare`.  `key(*args)` names what the result is built from,
+    (tensors, sizes): a call whose tensors are those of the last build,
+    none written since (each tensor's `_version`, which every in-place
+    write bumps), at equal sizes, returns that result (and counts
+    `counter`); any other call builds and fills the slot.  The slot holds
+    the tensors, so a freed tensor's address cannot alias them.  Inference
+    tensors keep no version and always rebuild.  A write that bypasses
+    the version counter (through `.data`, numpy or a raw pointer) is not
+    seen."""
+    slot = None  # (tensors, versions, sizes), result
+
+    @functools.wraps(build)
+    def keeping(*args):
+        nonlocal slot
+        with span("cdk.prepare"):
+            tensors, sizes = key(*args)
+            tensors = tuple(tensors)
+            versions = (None if any(t.is_inference() for t in tensors)
+                        else tuple(t._version for t in tensors))
+            last = slot
+            if (versions is not None and last is not None
+                    and all(s is t for s, t in zip(last[0][0], tensors))
+                    and last[0][1:] == (versions, sizes)):
+                if counter:
+                    count(counter)
+                return last[1]
+            result = build(*args)
+            slot = None if versions is None else ((tensors, versions, sizes),
+                                                  result)
+            return result
+
+    return keeping
 
 
 def _materialize(variant: "Variant", cfg, data):

@@ -12,7 +12,8 @@ itself too; a reader takes the union of a name's intervals.
                        A² (`precompose_operator`), the DSS weights
                        (`dss.dss_weights`, `dss2d.dss2d_weights`), the
                        variants' `prepare` (the lookup of a reused one
-                       too) and the MPDATA invariants
+                       too), the MPDATA invariants and K3g's tile map
+                       (`kernels/cke/group.py` `tiles`, built or looked up)
     cdk.layout         the layout turns: `problem.to_lane_layout` /
                        `from_lane_layout`, `lanes.to_xzs` / `from_xzs`,
                        `mesh.shard_x` / `gather_x`
@@ -23,7 +24,9 @@ itself too; a reader takes the union of a name's intervals.
     cdk.dist.gather    the shards' outputs stacked and their partials
                        summed (`dist/mpdata.py`, `dist/biharmonic.py`)
     cdk.cke.mask       K3's masked tracer table, tracer · cellMask, one a
-                       tracer (`kernels/cke/rows.py`, the `pallas_rows` step)
+                       tracer (`kernels/cke/rows.py`, the `pallas_rows`
+                       step); it runs only on the per-tracer path: K3g
+                       folds the mask into its stage
 
 `counted(fn)` gives a kernel wrapper its `launches` and `steps`, registers
 it, and runs each call inside `span("cdk.kernel")`; `build.launch`, the
@@ -42,7 +45,13 @@ them, so a CPU call, which runs the plain version, counts nothing.
                        where it lies, with no lane copy before it
     cke_mesh_passes    a CKE step's passes over the edge fields
                        (connectivity, coefficients, ntf, advMask): one a
-                       tracer table (`kernels/cke/problem.py` `each_tracer`)
+                       tracer table, or one for a whole group that K3g
+                       takes (`kernels/cke/problem.py` `each_tracer`,
+                       `kernels/cke/rows.py` `pallas_rows`' step)
+    cke_group_launches a group step taken whole by K3g (one launch on the
+                       card, its plain version on the CPU) where its tile
+                       map fits: the steps where the group mechanism
+                       engaged (`pallas_rows`' step)
 
 `counts()` is a snapshot of both, so a caller reads what a stretch of work
 did as the difference of two snapshots.

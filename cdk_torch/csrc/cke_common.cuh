@@ -109,6 +109,25 @@ __device__ __forceinline__ double ld_keep1(const double* a, uint64_t pol) {
   return v;
 }
 
+// 16-byte reads and writes of the once-touched edge fields, evict-first
+__device__ __forceinline__ Pack<float> ld_stream(const float* a) {
+  const float4 x = __ldcs(reinterpret_cast<const float4*>(a));
+  return {{x.x, x.y, x.z, x.w}};
+}
+
+__device__ __forceinline__ Pack<double> ld_stream(const double* a) {
+  const double2 x = __ldcs(reinterpret_cast<const double2*>(a));
+  return {{x.x, x.y}};
+}
+
+__device__ __forceinline__ void st_stream(float* a, const Pack<float>& p) {
+  __stcs(reinterpret_cast<float4*>(a), make_float4(p.v[0], p.v[1], p.v[2], p.v[3]));
+}
+
+__device__ __forceinline__ void st_stream(double* a, const Pack<double>& p) {
+  __stcs(reinterpret_cast<double2*>(a), make_double2(p.v[0], p.v[1]));
+}
+
 // An edge's slot data in shared memory, edge-major: slot i of the tile's
 // edge el at [el * nadv + i].
 template <typename T>

@@ -35,25 +35,6 @@ namespace {
 
 constexpr int THREADS = 128;  // blocks of 64-256 threads measured; 128 fastest
 
-// 16-byte reads and writes of the once-touched edge fields, evict-first
-__device__ __forceinline__ cke::Pack<float> ld_stream(const float* a) {
-  const float4 x = __ldcs(reinterpret_cast<const float4*>(a));
-  return {{x.x, x.y, x.z, x.w}};
-}
-
-__device__ __forceinline__ cke::Pack<double> ld_stream(const double* a) {
-  const double2 x = __ldcs(reinterpret_cast<const double2*>(a));
-  return {{x.x, x.y}};
-}
-
-__device__ __forceinline__ void st_stream(float* a, const cke::Pack<float>& p) {
-  __stcs(reinterpret_cast<float4*>(a), make_float4(p.v[0], p.v[1], p.v[2], p.v[3]));
-}
-
-__device__ __forceinline__ void st_stream(double* a, const cke::Pack<double>& p) {
-  __stcs(reinterpret_cast<double2*>(a), make_double2(p.v[0], p.v[1]));
-}
-
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 cke_rows_kernel(const int* __restrict__ cells, const T* __restrict__ c1,
@@ -81,8 +62,8 @@ cke_rows_kernel(const int* __restrict__ cells, const T* __restrict__ c1,
     const size_t o = static_cast<size_t>(e0 + el) * nvert + k0;
     cke::Pack<T> n, m, s1, s3;
     if (VEC) {
-      n = ld_stream(ntf + o);
-      m = ld_stream(advm + o);
+      n = cke::ld_stream(ntf + o);
+      m = cke::ld_stream(advm + o);
     } else {
 #pragma unroll
       for (int w = 0; w < W; ++w) {
@@ -97,7 +78,7 @@ cke_rows_kernel(const int* __restrict__ cells, const T* __restrict__ c1,
 #pragma unroll
     for (int w = 0; w < W; ++w) r.v[w] = cke::finish(s1.v[w], s3.v[w], n.v[w], m.v[w], coef3);
     if (VEC) {
-      st_stream(out + o, r);
+      cke::st_stream(out + o, r);
     } else {
 #pragma unroll
       for (int w = 0; w < W; ++w) {

@@ -26,12 +26,15 @@ PyTorch products (`torch.bmm`, one dense `torch.matmul` for
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from cdk_torch.core.platform import exact_fp32
-from cdk_torch.core.registry import UnsupportedConfigError, forms, register
+from cdk_torch.core.registry import (
+    UnsupportedConfigError,
+    forms,
+    keep_last,
+    register,
+)
 from cdk_torch.core.trace import count, span
 from cdk_torch.kernels.biharmonic.problem import (
     BiharmonicData,
@@ -61,44 +64,16 @@ def build_element_operator(dvv, dinv, spheremp, tensorvisc,
 ELEMENT_FIELDS = ("dvv", "dinv", "spheremp", "tensorvisc")
 
 
-def _fields_key(data: BiharmonicData):
-    """The element fields with their version counters, or None where one
-    is an inference tensor (which keeps no version)."""
-    fields = [getattr(data, f) for f in ELEMENT_FIELDS]
-    if any(t.is_inference() for t in fields):
-        return None
-    return tuple((t, t._version) for t in fields)
-
-
 def reuse_prepare(prepare):
     """`prepare(data)`, a form's set-up from the element fields (L, the
-    DSS weights, A²), with a slot for the last result: a call whose dvv,
-    dinv, spheremp and tensorvisc are the tensors of the last build, none
-    written since (each tensor's `_version`, which every in-place write
-    bumps), returns that result (`count("prepare_reuses")`); any other
-    call builds and fills the slot.  The slot holds the fields, so a
-    freed tensor's address cannot alias them.  qtens is never read: the
-    result is a constant of the grid, and every output is computed from
-    the call's tracers.  Inference tensors keep no version and always
-    rebuild.  A write that bypasses the version counter (through `.data`,
-    numpy or a raw pointer) is not seen."""
-    slot = None  # (key, aux)
-
-    @functools.wraps(prepare)
-    def reusing(data: BiharmonicData):
-        nonlocal slot
-        with span("cdk.prepare"):
-            key, last = _fields_key(data), slot
-            if key is not None and last is not None and all(
-                    s is t and u == v
-                    for (s, u), (t, v) in zip(last[0], key)):
-                count("prepare_reuses")
-                return last[1]
-            aux = prepare(data)
-            slot = None if key is None else (key, aux)
-            return aux
-
-    return reusing
+    DSS weights, A²), kept (`registry.keep_last`) while dvv, dinv,
+    spheremp and tensorvisc are the tensors of the last build, none
+    written since; a kept result counts `prepare_reuses`.  qtens is never
+    read: the result is a constant of the grid, and every output is
+    computed from the call's tracers."""
+    return keep_last(
+        prepare, lambda data: ([getattr(data, f) for f in ELEMENT_FIELDS], ()),
+        "prepare_reuses")
 
 
 def element_forms(prepare, run) -> dict:

@@ -22,13 +22,13 @@ stencil on that mesh (`mesh.py`) and its random draw is left out, every
 other draw in the same order; with ntracers T > 1 the tracer is a group
 (T, nCells, nVertLevels), each tracer's table contiguous as tracerCur is,
 drawn in one call where the one table was.  A variant's step takes one
-table; the family's loop runs it over a group with `each_tracer`, into
-(T, nEdges, nVertLevels), every tracer's flux from its own table.
+table, or a whole group where it is marked `takes_group`; the family's
+loop runs it over a group with `each_tracer`, into (T, nEdges,
+nVertLevels), every tracer's flux from its own table.
 """
 
 from __future__ import annotations
 
-import inspect
 from dataclasses import dataclass, fields, replace
 from typing import Mapping
 
@@ -81,25 +81,31 @@ class CkeData:
         return CkeData(**moved)
 
 
+def takes_group(step2):
+    """Marks `step2` as a step that takes a (T, C, K) tracer group whole,
+    returns its (T, E, K) flux and counts its own `cke_mesh_passes`
+    (`each_tracer`)."""
+    step2.takes_group = True
+    return step2
+
+
 def each_tracer(step2, aux, data: CkeData) -> torch.Tensor:
-    """One step of a CKE variant, `step2(aux, data)` over one (C, K) tracer
-    table, over data whose tracer is one table or a group (T, C, K).  A
-    group's step runs it once per tracer, on that tracer's own table, into
-    (T, E, K): a step2 that takes `out` (K3's) writes the flux into the
-    tracer's slice, another's is copied there.  Each run is one pass over
-    the edge fields (connectivity, coefficients, ntf, advMask): counter
-    `cke_mesh_passes`."""
+    """One step of a CKE variant, `step2(aux, data)`, over data whose
+    tracer is one (C, K) table or a group (T, C, K).  A step marked
+    `takes_group` (`pallas_rows`') is handed the data as it is; any other
+    takes one table and runs once per tracer, on that tracer's own table,
+    its flux copied into the tracer's slice of (T, E, K).  Each run is
+    one pass over the edge fields (connectivity, coefficients, ntf,
+    advMask): counter `cke_mesh_passes`."""
+    if getattr(step2, "takes_group", False):
+        return step2(aux, data)
     if data.tracer.dim() == 2:
         count("cke_mesh_passes")
         return step2(aux, data)
-    into = "out" in inspect.signature(step2).parameters
     out = data.ntf.new_empty((data.tracer.shape[0], *data.ntf.shape))
     for dst, tracer in zip(out, data.tracer):
         count("cke_mesh_passes")
-        d = replace(data, tracer=tracer)
-        got = step2(aux, d, out=dst) if into else step2(aux, d)
-        if got is not dst:
-            dst.copy_(got)
+        dst.copy_(step2(aux, replace(data, tracer=tracer)))
     return out
 
 

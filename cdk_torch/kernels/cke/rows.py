@@ -17,7 +17,9 @@ slot-order gather-accumulate in plain PyTorch, which is the champion
 `gather_peradv`'s own computation (the CPU path, and what the card's kernel
 is compared with: the two are bitwise equal), and the wrapper `cke_rows`,
 which launches the kernel for CUDA tensors and runs the plain version for
-CPU tensors.
+CPU tensors.  The variant's step takes a tracer group whole: one launch of
+K3g (`group.py`) where the tile map its set-up made fits, K3 once a tracer
+elsewhere.
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ import torch
 
 from cdk_torch.core import build
 from cdk_torch.core.registry import register
-from cdk_torch.core.trace import counted, span
+from cdk_torch.core.trace import count, counted, span
+from cdk_torch.kernels.cke import group
 from cdk_torch.kernels.cke.gather_peradv import gather_flux as cke_rows_plain
 from cdk_torch.kernels.cke.launch import check_inputs
-from cdk_torch.kernels.cke.problem import CkeData
+from cdk_torch.kernels.cke.problem import CkeData, takes_group
 from cdk_torch.kernels.cke.reference import coef3_of
 
 
@@ -65,15 +68,43 @@ def cke_rows(cells, c1, c3, t, ntf, adv_mask, coef3: float, out=None):
     experimental=True,
 )
 def make_pallas_rows(cfg):
-    """(prepare, step2): no set-up; step2 takes `out`, the slice of a
-    tracer group's flux it writes (`problem.each_tracer`).  The masked
-    table is built under span `cdk.cke.mask`."""
+    """(prepare, step2): the set-up keeps K3g's tile map (`group.tiles`,
+    built here for a group); step2 takes one table or a whole group
+    (`problem.takes_group`).  A group whose map fits is one K3g launch
+    (counters `cke_mesh_passes` and `cke_group_launches`); one table, or a
+    group whose map does not fit, runs K3 once a table, each on its masked
+    table built under span `cdk.cke.mask`, into its tracer's slice of the
+    (T, E, K) flux (one `cke_mesh_passes` a table)."""
     c3 = coef3_of(cfg)
 
-    def step2(aux, data: CkeData, out=None) -> torch.Tensor:
+    def prepare(data: CkeData):
+        get = group.tiles()
+        if data.tracer.dim() == 3:
+            get(data.adv_cells, data.tracer)
+        return get
+
+    def k3(data: CkeData, tracer, out=None) -> torch.Tensor:
+        count("cke_mesh_passes")
         with span("cdk.cke.mask"):
-            t = data.tracer * data.cell_mask
+            t = tracer * data.cell_mask
         return cke_rows(data.adv_cells, data.adv_coefs, data.adv_coefs3, t,
                         data.ntf, data.adv_mask, c3, out)
 
-    return (lambda data: ()), step2
+    @takes_group
+    def step2(get, data: CkeData) -> torch.Tensor:
+        if data.tracer.dim() == 2:
+            return k3(data, data.tracer)
+        _, c, k = data.tracer.shape
+        tm = get(data.adv_cells, data.tracer)
+        if group.fits(tm, c, k, data.adv_cells.shape[1], data.tracer.dtype):
+            count("cke_mesh_passes")
+            count("cke_group_launches")
+            return group.cke_group(tm, data.adv_coefs, data.adv_coefs3,
+                                   data.tracer, data.cell_mask, data.ntf,
+                                   data.adv_mask, c3)
+        out = data.ntf.new_empty((data.tracer.shape[0], *data.ntf.shape))
+        for dst, tracer in zip(out, data.tracer):
+            k3(data, tracer, dst)
+        return out
+
+    return prepare, step2

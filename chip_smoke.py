@@ -41,7 +41,10 @@ Phases, each printing its result; the first failure exits non-zero:
               floor their E*A*K gathered values set at the L2 rate), and
               K3 on the cell mpaso.tracers' 486 x 488 periodic hexagonal
               mesh (711504 x 237168 x 60, f32) through out= into one
-              tracer's slice of a group, bitwise its plain version; K14
+              tracer's slice of a group, bitwise its plain version, and
+              K3g there over the cell's 32 tracers in one launch, bitwise
+              its plain version and the per-tracer K3 path, beside its
+              bound and the per-tracer path's time; K14
               (four forms), K19 (two forms) and the rowchain's
               K15, K17 and step (K16 at depth 1, K18 deeper) at the
               shipped 16 x 72 x 40 (f32 and f64) and the production
@@ -158,6 +161,8 @@ PORTED = {**dict.fromkeys(("K1", "K2"), 1), **dict.fromkeys(("K3", "K11", "K12",
           **dict.fromkeys(("K4", "K5", "K6", "K7", "K8", "K9", "K10"), 4),
           **dict.fromkeys(("K20", "K21", "K22", "K23", "K24", "K25"), 5),
           **dict.fromkeys(("K14w", "K16p", "K17p", "K18p"), 6)}
+# kernels written for the card that port no TPU kernel: the change that added each
+NEW = {"K3g": 23}
 REDESIGNED = {"K14": (7, 1.6638), "K14w": (7, 3.8402), "K16": (21, 0.2552),
               "K16p": (21, 0.2564), "K18": (21, 1.1170), "K18p": (21, 1.0512),
               "K6": (8, 0.5603), "K7": (8, 0.5615), "K8": (8, 1.8192),
@@ -176,7 +181,7 @@ STEPPED = ("K2", "K8", "K9", "K14", "K14w", "K18", "K18p", "K24", "K25")
 
 def table_row(k: str, row: dict) -> str:
     """The kernel's row of PERF.md's table, from its JSON description."""
-    status = f"ported PR {PORTED[k]}"
+    status = f"new PR {NEW[k]}" if k in NEW else f"ported PR {PORTED[k]}"
     ms = f"{row['ms']:.4f}"
     if k in REDESIGNED:
         pr, before = REDESIGNED[k]
@@ -762,7 +767,7 @@ def cke_csr(cells, c1, c3, ncells: int):
 def phase_cke_kernels(dev, card):
     """K3, K11, K12 and K13 against their plain versions, with the library
     calls that compute their sums and, for K3 and K13, the floor the card's
-    L2 read rate sets; returns the JSON rows."""
+    L2 read rate sets, and K3g (phase_cke_group); returns the JSON rows."""
     import torch
 
     from cdk_torch.core.config import CkeConfig
@@ -924,6 +929,7 @@ def phase_cke_kernels(dev, card):
             if label == "shipped":
                 del staged
     rows["K3"].update(phase_cke_mesh(dev, card, l2_rate))
+    rows.update(phase_cke_group(dev, card))
     return rows
 
 
@@ -980,6 +986,77 @@ def phase_cke_mesh(dev, card, l2_rate: float) -> dict:
              f"into_slice={into} other_slice_untouched={untouched}")
     return dict(mpaso_ms=ms, mpaso_bound_ms=here["bound_ms"],
                 mpaso_library_ms=sparse_ms, mpaso_l2_floor_ms=floor_ms)
+
+
+def phase_cke_group(dev, card) -> dict:
+    """K3g as the benchmark cell mpaso.tracers runs it: the flux of all 32
+    tracers of the group on the 486 x 488 periodic hexagonal mesh at 60
+    levels, f32, in one launch through the family's loop.  Held bit for
+    bit, tracer by tracer, to its plain version through the same tile map,
+    and to the per-tracer K3 path (K3 once a tracer on its masked table,
+    through out= into its slice); timed beside the cell's bound (every
+    table, the mask and the edge fields read once, the (T, E, K) flux
+    written once), the per-tracer K3 path and the plain version on the
+    whole group.  Returns K3g's row of PERF.md's kernel table."""
+    import torch
+
+    import cdk_torch.kernels  # noqa: F401  (registers the variants)
+    from cdk_torch.core import registry, trace
+    from cdk_torch.core.config import CkeConfig
+    from cdk_torch.harness.specs import get_spec
+    from cdk_torch.kernels.cke import group
+    from cdk_torch.kernels.cke import problem as cp
+    from cdk_torch.kernels.cke.reference import coef3_of
+    from cdk_torch.kernels.cke.rows import cke_rows
+
+    cfg = CkeConfig(mesh="planar_hex", nx=486, ny=488, nvertlevels=60,
+                    ntracers=32, dtype="float32", device_init=True)
+    d = cp.init_data(cfg, dev)
+    c3 = coef3_of(cfg)
+    step2, aux, _ = registry._materialize(registry.get("cke", "pallas_rows"), cfg, d)
+    before, launches = trace.counts(), group.cke_group.launches
+    got = get_spec("cke").loop_runner(step2, aux, 1)(d)
+    torch.cuda.synchronize()
+    after = trace.counts()
+    one = (group.cke_group.launches - launches == 1
+           and all(after.get(k, 0) - before.get(k, 0) == 1
+                   for k in ("cke_group_launches", "cke_mesh_passes")))
+    tm = aux(d.adv_cells, d.tracer)
+    edge = (d.adv_coefs, d.adv_coefs3)
+    ef = (d.cell_mask, d.ntf, d.adv_mask)
+    plain_bitwise = all(
+        torch.equal(got[i], group.cke_group_plain(tm, *edge, d.tracer[i:i + 1], *ef, c3)[0])
+        for i in range(cfg.ntracers))
+
+    def per_tracer(out):
+        for dst, tracer in zip(out, d.tracer):
+            cke_rows(d.adv_cells, *edge, tracer * d.cell_mask, *ef[1:], c3, out=dst)
+        return out
+
+    ref = per_tracer(torch.empty_like(got))
+    torch.cuda.synchronize()
+    k3_bitwise = torch.equal(got, ref)
+    _, mae, big = errors(got, ref, "l1")
+    ms = timed_ms(lambda: group.cke_group(tm, *edge, d.tracer, *ef, c3), 5)
+    k3_ms = timed_ms(lambda: per_tracer(ref), 3)
+    here = bound((d.adv_cells, *edge, d.tracer, *ef, got),
+                 cfg.ntracers * cke_ops(cfg.nedges, cfg.nvertlevels, cfg.nadv))
+    del got, ref
+    plain_ms = timed_ms(lambda: group.cke_group_plain(tm, *edge, d.tracer, *ef, c3), 1)
+    print(f"[3 K3g] mpaso_ec30to60 486x488 hex {cfg.nedges}x{cfg.ncells}x"
+          f"{cfg.nvertlevels} A={cfg.nadv} float32, {cfg.ntracers} tracers through the "
+          f"family's loop: bitwise its plain version={plain_bitwise}, bitwise the "
+          f"per-tracer K3 path={k3_bitwise}, one launch and one pass={one}, tile "
+          f"{tm.tile} edges, widest stage {tm.width} cells; kernel {ms:.4f} ms; bound "
+          f"{here['bound_ms']:.4f} ms ({here['bound_by']}, "
+          f"{100 * here['bound_ms'] / ms:.1f} %); the per-tracer K3 path ({cfg.ntracers} "
+          f"masked tables and K3 launches) {k3_ms:.4f} ms; plain version on the whole "
+          f"group {plain_ms:.4f} ms [{card}]")
+    if not (plain_bitwise and k3_bitwise and one and big > 0):
+        fail(f"K3g on the mpaso_ec30to60 mesh: bitwise plain={plain_bitwise} "
+             f"K3={k3_bitwise} one_launch={one}")
+    return {"K3g": dict(max_abs_err=mae, ms=ms, plain_ms=plain_ms, per_tracer_k3_ms=k3_ms,
+                        **here)}
 
 
 def phase_dss_kernels(dev, card):
@@ -1620,6 +1697,39 @@ def phase_main(dev, card, ledger: SizeLedger):
             if not r.ok:
                 fail(f"{kernel} {label} {r.variant}: {r.metrics} {r.note}")
         ledger.charge(label.split()[0])
+    phase_main_group(dev, card)
+    ledger.charge("production")
+
+
+def phase_main_group(dev, card) -> None:
+    """The cell mpaso.tracers' 32-tracer group through the family's loop,
+    as the benchmark runs it (run_kernel takes one table): `pallas_rows`,
+    one K3g launch a step, against `reference_jnp` tracer by tracer over
+    two steps, then timed a step."""
+    import cdk_torch.kernels  # noqa: F401  (registers the variants)
+    from cdk_torch.core import registry
+    from cdk_torch.core.config import CkeConfig
+    from cdk_torch.harness.specs import get_spec
+    from cdk_torch.kernels.cke import problem as cp
+
+    t0 = time.perf_counter()
+    cfg = CkeConfig(mesh="planar_hex", nx=486, ny=488, nvertlevels=60,
+                    ntracers=32, dtype="float32", device_init=True)
+    d = cp.init_data(cfg, dev)
+    spec = get_spec("cke")
+    flux = {}
+    for name in ("reference_jnp", "pallas_rows"):
+        step2, aux, _ = registry._materialize(registry.get("cke", name), cfg, d)
+        flux[name] = spec.loop_runner(step2, aux, 2)(d)
+    check = spec.verify(cfg, flux["pallas_rows"], flux["reference_jnp"])
+    del flux
+    # step2 and aux are pallas_rows', the last made
+    us = timed_ms(lambda: spec.loop_runner(step2, aux, 1)(d), 5) * 1e3
+    print(f"[4 main] cke production f32 hex, {cfg.ntracers} tracers through the "
+          f"family's loop: pallas_rows {'ok' if check.ok else 'FAILED'} {us:.3f} us/step "
+          f"{check.metrics} [{card}] ({time.perf_counter() - t0:.1f} s leg)")
+    if not check.ok:
+        fail(f"cke production f32 hex pallas_rows: {check.metrics}")
 
 
 def phase_dist(dev, card, ledger: SizeLedger):
@@ -2069,6 +2179,7 @@ def main() -> int:
         apply_operator_pallas,
         bd8_resident,
     )
+    from cdk_torch.kernels.cke.group import cke_group
     from cdk_torch.kernels.cke.lanegather import cke_lanegather
     from cdk_torch.kernels.cke.onehot import cke_onehot
     from cdk_torch.kernels.cke.rows import cke_rows
@@ -2081,7 +2192,7 @@ def main() -> int:
     )
 
     wrappers = {"K1": bd8_resident, "K2": advect_resident, "K3": cke_rows,
-                "K4": fused_laplace, "K5": apply_operator_pallas,
+                "K3g": cke_group, "K4": fused_laplace, "K5": apply_operator_pallas,
                 "K6": staged.advect_fused, "K7": staged.advect_packed,
                 "K8": staged.advect_staged_resident,
                 "K9": advect_hoisted_resident, "K10": advect_lanes,
@@ -2148,6 +2259,10 @@ def main() -> int:
                    replaces="cdk_tpu/kernels/mpdata/pallas_xmajor.py:122"),
         "K3": dict(name="cke_rows", source="cdk_torch/csrc/cke_rows.cu",
                    replaces="cdk_tpu/kernels/cke/pallas_rows.py:46"),
+        # K3's group form, which replaces no TPU kernel
+        "K3g": dict(name="cke_group", source="cdk_torch/csrc/cke_group.cu",
+                    replaces="none (the group form of K3, cdk_tpu/kernels/cke/"
+                             "pallas_rows.py:46)"),
         "K4": dict(name="biharmonic_fused", source="cdk_torch/csrc/biharmonic_fused.cu",
                    replaces="cdk_tpu/kernels/biharmonic/pallas_fused.py:41"),
         # K5 launches K1's kernel at one step
@@ -2205,7 +2320,7 @@ def main() -> int:
                           ("K25", "mpdata_masked_kloop_split", 605)):
         meta[k] = dict(name=name, source="cdk_torch/csrc/mpdata_masked.cu",
                        replaces=f"cdk_tpu/kernels/mpdata/pallas_masked.py:{line}")
-    order = sorted(meta, key=lambda k: (int(k[1:].rstrip("pw")), k))
+    order = sorted(meta, key=lambda k: (int(k[1:].rstrip("pwg")), k))
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
                     replaces=meta[k]["replaces"], launches=launches[k],
                     launches_shipped=by_size["shipped"][k],
@@ -2215,8 +2330,8 @@ def main() -> int:
                     **{"library_ms": None, **rows[k]},
                     **({"redesigned": REDESIGNED[k][0]} if k in REDESIGNED else {}))
                for k in order]
-    if len(kernels) != 29:
-        fail(f"{len(kernels)} kernels described, want all 29")
+    if len(kernels) != 30:
+        fail(f"{len(kernels)} kernels described, want all 30")
     print(f"[7 wall] {time.perf_counter() - t0:.1f} s, build included")
     for k, row in zip(order, kernels):
         print(f"[7 table] {table_row(k, row)}")

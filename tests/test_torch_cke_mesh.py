@@ -200,19 +200,23 @@ def _assert_gate(cfg, got, want):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("ntracers", [1, 3])
 def test_group_loop_against_both_references(ntracers, dtype):
-    """The family's loop over pallas_rows (K3's plain version on the CPU),
-    as registry_loop runs it: every tracer's flux from its own table,
-    against the benchmark's float64 reference and the port's reference
-    tracer by tracer; one pass over the edge fields a tracer a step."""
+    """The family's loop over pallas_rows (on the CPU K3g's plain version
+    for the group, K3's for one table), as registry_loop runs it: every
+    tracer's flux from its own table, against the benchmark's float64
+    reference and the port's reference tracer by tracer; one pass over the
+    edge fields a step, the group's taken whole by K3g."""
     cfg = _group_cfg(ntracers, dtype)
     d = cp.init_data(cfg)
     step2, aux, vloop = registry._materialize(
         registry.get("cke", "pallas_rows"), cfg, d)
     assert vloop is None
     loop = get_spec("cke").loop_runner(step2, aux, 1)
-    before = trace.counts().get("cke_mesh_passes", 0)
+    before = trace.counts()
     got = loop(d)
-    assert trace.counts()["cke_mesh_passes"] - before == ntracers
+    after = trace.counts()
+    assert after["cke_mesh_passes"] - before.get("cke_mesh_passes", 0) == 1
+    assert (after.get("cke_group_launches", 0)
+            - before.get("cke_group_launches", 0)) == (ntracers > 1)
     tables = d.tracer if ntracers > 1 else d.tracer[None]
     flux = got if ntracers > 1 else got[None]
     assert flux.shape == (ntracers, cfg.nedges, cfg.nvertlevels)
@@ -236,14 +240,14 @@ def test_group_loop_against_both_references(ntracers, dtype):
 @pytest.mark.parametrize("n", [0, 2, 3])
 def test_group_loop_over_several_steps(n):
     """n steps of a group: each the fluxes of every tracer, the last
-    returned (zeros for none), n passes a tracer."""
+    returned (zeros for none), one pass a step (K3g takes the group)."""
     cfg = _group_cfg(3, "float64")
     d = cp.init_data(cfg)
     step2, aux, _ = registry._materialize(registry.get("cke", "pallas_rows"), cfg, d)
     loop = get_spec("cke").loop_runner
     before = trace.counts().get("cke_mesh_passes", 0)
     got = loop(step2, aux, n)(d)
-    assert trace.counts().get("cke_mesh_passes", 0) - before == 3 * n
+    assert trace.counts().get("cke_mesh_passes", 0) - before == n
     assert got.shape == (3, cfg.nedges, cfg.nvertlevels)
     if n == 0:
         assert not got.any()
@@ -284,9 +288,11 @@ def test_k3_writes_into_the_group_slice():
 
 
 def test_group_step_hands_k3_each_tracers_slice(monkeypatch):
-    """Through the family's loop K3 writes each tracer's flux straight into
-    its slice of the (T, E, K) result: no flux is copied after it."""
-    cfg = _group_cfg(3, "float64")
+    """Through the family's loop, on connectivity whose tile map does not
+    fit K3g (the miniapp's random draw), K3 writes each tracer's flux
+    straight into its slice of the (T, E, K) result: no flux is copied
+    after it."""
+    cfg = CkeConfig(ncells=2800, nedges=256, nvertlevels=100, ntracers=3)
     d = cp.init_data(cfg)
     step2, aux, _ = registry._materialize(registry.get("cke", "pallas_rows"), cfg, d)
     seen = []

@@ -231,7 +231,8 @@ def test_build_names_and_refuses_without_nvcc(tmp_path, monkeypatch):
                                     "biharmonic_dss2d_rowchain.cu",
                                     "biharmonic_dss_resident.cu",
                                     "biharmonic_fused.cu",
-                                    "biharmonic_resident.cu", "cke_lanegather.cu",
+                                    "biharmonic_resident.cu", "cke_group.cu",
+                                    "cke_lanegather.cu",
                                     "cke_onehot.cu", "cke_rows.cu",
                                     "cke_staged.cu", "mpdata_lanes.cu",
                                     "mpdata_masked.cu", "mpdata_resident.cu"]

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: each hand-written kernel against
 its plain PyTorch version on the card (K1, K2, the CKE kernels K3, K11,
 K12, K13 at ragged shapes, K3 off 16-byte alignment, K3 on the planar
-hexagonal mesh over a tracer group and K12 on adversarial connectivity, K14, K19 and the rowchain kernels K15-K18 on
+hexagonal mesh, K3g over tracer groups on it (and the groups that fall back
+to K3) and K12 on adversarial connectivity, K14, K19 and the rowchain kernels K15-K18 on
 small and odd rings and tori (the tensor-core bf16x3 forms of K14 and the
 rowchain step also at ragged m-tiles and across the step's row tiles), K4,
 K5, the staged MPDATA kernel behind K6, K7 and K8, K9 and K10, the
@@ -39,6 +40,7 @@ from cdk_torch.kernels.biharmonic import fused as bfused
 from cdk_torch.kernels.biharmonic import problem as bproblem
 from cdk_torch.kernels.biharmonic import resident as bres
 from cdk_torch.kernels.biharmonic.operator import precompose_operator
+from cdk_torch.kernels.cke import group as kgroup
 from cdk_torch.kernels.cke import lanegather as klg
 from cdk_torch.kernels.cke import onehot as koh
 from cdk_torch.kernels.cke import problem as cp
@@ -255,16 +257,14 @@ def test_cke_rows_off_alignment_matches_plain(cuda):
 def test_cke_rows_on_the_planar_hex_mesh_matches_plain(cuda, nx, ny):
     """K3 on MPAS-Tools' periodic hexagonal mesh at 60 levels (a small one
     and mpaso_ec30to60's 486 x 488), f32 and f64, each tracer of a group of
-    two through the family's loop, one launch a tracer: bitwise its plain
-    version."""
+    two through `out=` into its slice, as the per-tracer path runs it, one
+    launch a tracer: bitwise its plain version."""
     for dtype in ("float32", "float64"):
         cfg = CkeConfig(mesh="planar_hex", nx=nx, ny=ny, nvertlevels=60,
                         ntracers=2, dtype=dtype, device_init=True)
         d = cp.init_data(cfg, cuda)
-        step2, aux, _ = registry._materialize(
-            registry.get("cke", "pallas_rows"), cfg, d)
         before = krows.cke_rows.launches
-        got = get_spec("cke").loop_runner(step2, aux, 1)(d)
+        got = _per_tracer(d, coef3_of(cfg))
         torch.cuda.synchronize()
         assert krows.cke_rows.launches == before + 2
         assert got.shape == (2, 3 * nx * ny, 60)
@@ -274,6 +274,136 @@ def test_cke_rows_on_the_planar_hex_mesh_matches_plain(cuda, nx, ny):
                 d.tracer[i] * d.cell_mask, d.ntf, d.adv_mask, coef3_of(cfg))
             assert float(want.abs().max()) > 0
             assert torch.equal(got[i], want), (dtype, i)
+
+
+def _per_tracer(d, c3):
+    """The group's flux as the per-tracer path computes it: K3 once a
+    tracer on its masked table, into its slice of the (T, E, K) result."""
+    out = d.ntf.new_empty((d.tracer.shape[0], *d.ntf.shape))
+    for dst, tracer in zip(out, d.tracer):
+        krows.cke_rows(d.adv_cells, d.adv_coefs, d.adv_coefs3,
+                       tracer * d.cell_mask, d.ntf, d.adv_mask, c3, out=dst)
+    return out
+
+
+def _group_step(cfg, d):
+    """The family's loop over pallas_rows for one step of the group in `d`:
+    (flux, K3g launches, K3 launches, the counters' rises)."""
+    step2, aux, _ = registry._materialize(registry.get("cke", "pallas_rows"),
+                                          cfg, d)
+    launches = (kgroup.cke_group.launches, krows.cke_rows.launches)
+    before = trace.counts()
+    got = get_spec("cke").loop_runner(step2, aux, 1)(d)
+    torch.cuda.synchronize()
+    after = trace.counts()
+    rises = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("cke_mesh_passes", "cke_group_launches")}
+    return (got, kgroup.cke_group.launches - launches[0],
+            krows.cke_rows.launches - launches[1], rises, aux)
+
+
+def _assert_group_bitwise(cfg, d, got, aux):
+    """K3g's flux against the per-tracer K3 path and against its plain
+    version through the same tile map, one tracer at a time, bit for bit."""
+    c3 = coef3_of(cfg)
+    tm = aux(d.adv_cells, d.tracer)
+    want = _per_tracer(d, c3)
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+    del want
+    for i in range(d.tracer.shape[0]):
+        plain = kgroup.cke_group_plain(tm, d.adv_coefs, d.adv_coefs3,
+                                       d.tracer[i:i + 1], d.cell_mask, d.ntf,
+                                       d.adv_mask, c3)
+        assert torch.equal(got[i:i + 1], plain), i
+
+
+@pytest.mark.parametrize("nx,ny,nvert,ntracers,dtype", [
+    (24, 20, 60, 5, "float32"), (24, 20, 60, 7, "float64"),
+    (24, 20, 7, 13, "float32"), (24, 20, 7, 2, "float64"),
+    (6, 8, 100, 6, "float32"), (30, 20, 64, 1 + 12, "float32")])
+def test_cke_group_on_small_hex_meshes_matches_k3(cuda, nx, ny, nvert,
+                                                   ntracers, dtype):
+    """K3g through the family's loop on small periodic hexagonal meshes, f32
+    and f64, at a ragged nvert (7) and vector ones (60, 64, 100), tracer
+    counts on both sides of the kernel's ring of stages: one launch and one
+    pass a step, no K3; the flux bitwise the per-tracer K3 path's and K3g's
+    plain version's."""
+    cfg = CkeConfig(mesh="planar_hex", nx=nx, ny=ny, nvertlevels=nvert,
+                    ntracers=ntracers, dtype=dtype, device_init=True)
+    d = cp.init_data(cfg, cuda)
+    got, k3g, k3, rises, aux = _group_step(cfg, d)
+    assert (k3g, k3) == (1, 0)
+    assert rises == {"cke_mesh_passes": 1, "cke_group_launches": 1}
+    assert got.shape == (ntracers, 3 * nx * ny, nvert)
+    _assert_group_bitwise(cfg, d, got, aux)
+
+
+def test_cke_group_on_the_cells_mesh_matches_k3(cuda):
+    """K3g as the cell mpaso.tracers runs it: 32 tracers on the 486 x 488
+    periodic hexagonal mesh at 60 levels, f32; bitwise the per-tracer K3
+    path and its plain version."""
+    cfg = CkeConfig(mesh="planar_hex", nx=486, ny=488, nvertlevels=60,
+                    ntracers=32, dtype="float32", device_init=True)
+    d = cp.init_data(cfg, cuda)
+    got, k3g, k3, rises, aux = _group_step(cfg, d)
+    assert (k3g, k3) == (1, 0)
+    assert rises == {"cke_mesh_passes": 1, "cke_group_launches": 1}
+    _assert_group_bitwise(cfg, d, got, aux)
+
+
+def _crowded_tile(distinct, ncells=400, nedges=160, nvert=64):
+    """Connectivity on random data whose first tile of K3g's f32 map at
+    `nvert` names exactly `distinct` cells and every other tile few."""
+    cfg = with_overrides(CkeConfig(), ncells=ncells, nedges=nedges,
+                         nvertlevels=nvert, nadv=10, ntracers=3,
+                         dtype="float32")
+    d = cp.init_data(cfg)
+    tile = kgroup.tile_edges(nvert, torch.float32)
+    cells = torch.arange(nedges * 10, dtype=torch.int32).remainder(7)
+    cells[:tile * 10] = torch.arange(tile * 10).remainder(distinct) + 100
+    d.adv_cells = cells.view(nedges, 10).contiguous()
+    return cfg, d
+
+
+@pytest.mark.parametrize("over", [0, 1])
+def test_cke_group_at_its_stage_capacity(cuda, over):
+    """A tile whose stage fills every vector the block's threads carry
+    takes K3g, bitwise; one more cell and the group runs K3 a tracer."""
+    cap = kgroup.CARRY * kgroup.THREADS // kgroup.level_groups(64, torch.float32)
+    cfg, host = _crowded_tile(cap + over)
+    d = host.to(cuda)
+    got, k3g, k3, rises, aux = _group_step(cfg, d)
+    tm = aux(d.adv_cells, d.tracer)
+    assert tm.width == cap + over
+    if over:
+        assert (k3g, k3) == (0, 3)
+        assert rises == {"cke_mesh_passes": 3, "cke_group_launches": 0}
+        assert torch.equal(got, _per_tracer(d, coef3_of(cfg)))
+    else:
+        assert (k3g, k3) == (1, 0)
+        assert rises == {"cke_mesh_passes": 1, "cke_group_launches": 1}
+        _assert_group_bitwise(cfg, d, got, aux)
+
+
+@pytest.mark.parametrize("ntracers", [1, 3])
+def test_cke_tracers_without_a_group_or_locality_take_k3(cuda, ntracers):
+    """One table (a 2-D tracer) and a group on the miniapp's random
+    connectivity (2,800 cells, 100 levels) run K3 once a tracer, the masked
+    table under cdk.cke.mask: one pass a tracer, no K3g."""
+    cfg = with_overrides(CkeConfig(), ntracers=ntracers, dtype="float32",
+                         device_init=True)
+    d = cp.init_data(cfg, cuda)
+    got, k3g, k3, rises, _ = _group_step(cfg, d)
+    assert (k3g, k3) == (0, ntracers)
+    assert rises == {"cke_mesh_passes": ntracers, "cke_group_launches": 0}
+    tracers = d.tracer if ntracers > 1 else d.tracer[None]
+    flux = got if ntracers > 1 else got[None]
+    for i in range(ntracers):
+        want = krows.cke_rows_plain(
+            d.adv_cells, d.adv_coefs, d.adv_coefs3, tracers[i] * d.cell_mask,
+            d.ntf, d.adv_mask, coef3_of(cfg))
+        assert torch.equal(flux[i], want), i
 
 
 def _adversarial_cells(e, c, a, rng):

@@ -22,6 +22,8 @@ EXPECTED = {
     "cdk_bd8_resident_f32": "PPPIIIIIP",
     "cdk_bd8_resident_f64": "PPPIIIIP",
     "cdk_biharmonic_fused": "PPPPIIFIP",
+    "cdk_cke_group_f32": "PPPPPPPPPPIIIIIIIDP",
+    "cdk_cke_group_f64": "PPPPPPPPPPIIIIIIIDP",
     "cdk_cke_lanegather_f32": "PPPPPPPPIIIIDP",
     "cdk_cke_lanegather_f64": "PPPPPPPPIIIIDP",
     "cdk_cke_onehot_f32": "PPPPPPPIIIIDIP",
@@ -123,8 +125,8 @@ def test_every_kernel_module_launches_through_build():
             "resident", "fused", "dss_resident", "dss2d_resident",
             "dss2d_rowchain")),
         *(kernels + f"mpdata/{m}.py" for m in ("launch", "lanes", "masked")),
-        *(kernels + f"cke/{m}.py" for m in ("rows", "staged", "onehot",
-                                            "lanegather"))}
+        *(kernels + f"cke/{m}.py" for m in ("rows", "group", "staged",
+                                            "onehot", "lanegather"))}
 
 
 def test_c_args_maps_tensors_to_pointers_and_none_to_null():

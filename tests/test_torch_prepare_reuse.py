@@ -125,3 +125,48 @@ def test_inference_tensors_rebuild_every_call(family, name):
     assert _reuses() == r
     want = _fresh(family, name, data)
     assert all(torch.equal(out, want) for out in outs)
+
+
+def _kept():
+    """registry.keep_last over a build of (x, y, n), keyed by its tensors
+    (x, y) and its size n, counting `prepare_reuses`; with the builds made."""
+    builds = []
+
+    def build(x, y, n):
+        builds.append((x, y, n))
+        return object()
+
+    return registry.keep_last(build, lambda x, y, n: ((x, y), (n,)),
+                              "prepare_reuses"), builds
+
+
+# a change after the first call -> whether the second call builds again
+CHANGES = {
+    "none": (lambda x, y, n: (x, y, n), False),
+    "write": (lambda x, y, n: (x.add_(0), y, n), True),
+    "other_tensor": (lambda x, y, n: (x, y.clone(), n), True),
+    "other_size": (lambda x, y, n: (x, y, n + 1), True),
+    "swapped": (lambda x, y, n: (y, x, n), True),
+}
+
+
+@pytest.mark.parametrize("change", sorted(CHANGES))
+def test_keep_last_keeps_only_the_same_unwritten_tensors_at_the_same_sizes(change):
+    kept, builds = _kept()
+    x, y = torch.ones(3), torch.zeros(2)
+    first = kept(x, y, 4)
+    before = trace.counts().get("prepare_reuses", 0)
+    alter, rebuilds = CHANGES[change]
+    second = kept(*alter(x, y, 4))
+    reused = trace.counts().get("prepare_reuses", 0) - before
+    assert (second is not first) == rebuilds
+    assert len(builds) == 1 + rebuilds
+    assert reused == (not rebuilds)
+
+
+def test_keep_last_rebuilds_inference_tensors_every_call():
+    kept, builds = _kept()
+    with torch.inference_mode():
+        x, y = torch.ones(3), torch.zeros(2)
+    assert kept(x, y, 4) is not kept(x, y, 4)
+    assert len(builds) == 2

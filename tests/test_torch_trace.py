@@ -32,6 +32,7 @@ from cdk_torch.kernels.biharmonic.resident import (
     apply_operator_pallas,
     bd8_resident,
 )
+from cdk_torch.kernels.cke.group import cke_group
 from cdk_torch.kernels.cke.lanegather import cke_lanegather
 from cdk_torch.kernels.cke.onehot import cke_onehot
 from cdk_torch.kernels.cke.rows import cke_rows
@@ -54,7 +55,7 @@ HOMME_LOOPS = [("biharmonic_dss2d", "fused_operator_rowchain_sq_x3"),
 # chip_smoke.py's two wrapper lists and the two rowchain step wrappers:
 # K16/K18 and K16p/K18p are one wrapper each, at depth 1 and deeper
 WRAPPERS = {"K1": bd8_resident, "K2": advect_resident, "K3": cke_rows,
-            "K4": fused_laplace, "K5": apply_operator_pallas,
+            "K3g": cke_group, "K4": fused_laplace, "K5": apply_operator_pallas,
             "K6": staged.advect_fused, "K7": staged.advect_packed,
             "K8": staged.advect_staged_resident,
             "K9": advect_hoisted_resident, "K10": advect_lanes,
@@ -156,7 +157,7 @@ def test_dist_mpdata_loop_records_exchange_and_gather():
 
 
 @pytest.mark.parametrize("k", sorted(WRAPPERS, key=lambda k: (
-    int(k[1:].rstrip("pw")), k)))
+    int(k[1:].rstrip("pwg")), k)))
 def test_wrapper_is_registered_with_launches_and_steps(k):
     w = WRAPPERS[k]
     c = trace.counts()
