@@ -1,7 +1,8 @@
 """Command-line driver: `python -m cdk_torch <cmd> ...`.
 
   python -m cdk_torch list
-  python -m cdk_torch run biharmonic|biharmonic_dss|biharmonic_dss2d|mpdata|cke|all [--dtype float32]
+  python -m cdk_torch run biharmonic|biharmonic_dss|biharmonic_dss2d|biharmonic_dss_cube|
+         mpdata|cke|all [--dtype float32]
          [--iters N] [--trials N] [--variant NAME ...] [--json out.json]
          [--set key=value ...] [--preset production] [--device-init]
          [--namelist nested.nml] [--device cuda|cpu]
@@ -42,7 +43,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = ["biharmonic", "biharmonic_dss", "biharmonic_dss2d", "mpdata", "cke"]
+KERNELS = ["biharmonic", "biharmonic_dss", "biharmonic_dss2d",
+           "biharmonic_dss_cube", "mpdata", "cke"]
 
 
 def _parse_set(kvs):

@@ -246,6 +246,10 @@ PRODUCTION = {
     "biharmonic_dss2d": lambda: BiharmonicConfig(
         nelemd=5400, qsize=10, dtype="float32", device_init=True
     ),
+    # ne30's cube: 6 * 30^2 = 5400 elements
+    "biharmonic_dss_cube": lambda: BiharmonicConfig(
+        nelemd=5400, qsize=10, dtype="float32", device_init=True
+    ),
     "cke": lambda: CkeConfig(nedges=256000, ncells=28000, dtype="float32",
                              device_init=True),
 }

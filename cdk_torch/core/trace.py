@@ -14,6 +14,9 @@ itself too; a reader takes the union of a name's intervals.
                        variants' `prepare` (the lookup of a reused one
                        too), the MPDATA invariants and K3g's tile map
                        (`kernels/cke/group.py` `tiles`, built or looked up)
+    cdk.cube.map       the cubed sphere's assembly map built from its mesh
+                       (`cube.build_map`), inside the cube loop's
+                       `cdk.prepare`
     cdk.layout         the layout turns: `problem.to_lane_layout` /
                        `from_lane_layout`, `lanes.to_xzs` / `from_xzs`,
                        `mesh.shard_x` / `gather_x`
@@ -48,6 +51,9 @@ them, so a CPU call, which runs the plain version, counts nothing.
                        tracer table, or one for a whole group that K3g
                        takes (`kernels/cke/problem.py` `each_tracer`,
                        `kernels/cke/rows.py` `pallas_rows`' step)
+    cube_state_passes  the cube chain's passes over the state: one for K1's
+                       bridge-in in the loop, one a call of K26's wrapper
+                       (`kernels/biharmonic/dss_cube.py`), on either device
     cke_group_launches a group step taken whole by K3g (one launch on the
                        card, its plain version on the CPU) where its tile
                        map fits: the steps where the group mechanism

@@ -181,6 +181,13 @@ def _specs() -> dict[str, KernelSpec]:
             "biharmonic_dss2d", cfgmod.BiharmonicConfig, bi_problem.init_data,
             _verify_biharmonic_dss, lambda c: c.grid_points, _loop_biharmonic,
         ),
+        # the same over the cubed sphere, whose sizes are 6 * ne^2 elements
+        # (24 by default: ne 2)
+        "biharmonic_dss_cube": KernelSpec(
+            "biharmonic_dss_cube",
+            lambda: cfgmod.BiharmonicConfig(nelemd=24), bi_problem.init_data,
+            _verify_biharmonic_dss, lambda c: c.grid_points, _loop_biharmonic,
+        ),
         "mpdata": KernelSpec(
             "mpdata", cfgmod.MpdataConfig, mp_problem.init_data,
             _verify_mpdata, lambda c: c.grid_points, _loop_mpdata,

@@ -1,8 +1,10 @@
 from cdk_torch.kernels.biharmonic import (  # noqa: F401
+    cube,
     dss,
     dss2d,
     dss2d_resident,
     dss2d_rowchain,
+    dss_cube,
     dss_resident,
     operator,
     problem,

@@ -44,7 +44,9 @@ Phases, each printing its result; the first failure exits non-zero:
               tracer's slice of a group, bitwise its plain version, and
               K3g there over the cell's 32 tracers in one launch, bitwise
               its plain version and the per-tracer K3 path, beside its
-              bound and the per-tracer path's time; K14
+              bound and the per-tracer path's time; K26 over the cell
+              homme.hv_cube's ne30np4 cube (5400 x 2880, f32, A² and A)
+              within 5e-5 of its plain version, beside its bound; K14
               (four forms), K19 (two forms) and the rowchain's
               K15, K17 and step (K16 at depth 1, K18 deeper) at the
               shipped 16 x 72 x 40 (f32 and f64) and the production
@@ -67,7 +69,9 @@ Phases, each printing its result; the first failure exits non-zero:
               and 4), f bitwise the plain versions', K23 bitwise equal to
               K22 and K25 to K24
   4. main     cdk_torch.harness.driver.run_kernel for biharmonic,
-              biharmonic_dss, biharmonic_dss2d, mpdata and cke: shipped size
+              biharmonic_dss, biharmonic_dss2d, mpdata and cke (and the
+              cube's biharmonic_dss_cube at production only, its
+              reference and champion): shipped size
               with host init at f64 (every variant against the in-process
               reference at the f64 gate; for cke every registered variant,
               the experimental ones included; mpdata's experimental
@@ -95,7 +99,7 @@ Phases, each printing its result; the first failure exits non-zero:
               the "pallas" and "packed" cores and make_dist_loop(kstep=4,
               split=False) at production f32; the MPDATA per-step and
               kstep-4 loops timed at production f32 on 1 shard
-  6. counts   every kernel's launch counter rose during phase 4 (K1-K19)
+  6. counts   every kernel's launch counter rose during phase 4 (K1-K19, K26)
               or phase 5 (K2, K20-K25, K14w, K16p-K18p), each counted from
               zero, and each split by the size of the work that made it:
               shipped (the miniapps' sizes, and the `scaling` sweeps' small
@@ -146,6 +150,10 @@ BF16_OPS_PER_S = 989e12
 # a ring DSS (8 boundary sums, 16 weights), a torus DSS (16 sums, 16
 # weights) and its i pass with the weights (8 + 16) and j pass (8)
 APPLY, RING_DSS, TORUS_DSS, I_PASS, J_PASS = 512, 24, 32, 24, 8
+# a cube DSS's least per element-column: over the cube's unique points, m - 1
+# sums and one product for a point of m sharers, 16 an element on average
+# (cdkbench/work/biharmonic_dss_cube.py)
+CUBE_DSS = 16
 # a bf16x3 apply: three bf16 products of APPLY operations each, and in f32
 # the split of the column's 16 values into hi and lo parts (3 each) and the
 # sum of the three partial results (2 per output); the operator's split,
@@ -162,7 +170,7 @@ PORTED = {**dict.fromkeys(("K1", "K2"), 1), **dict.fromkeys(("K3", "K11", "K12",
           **dict.fromkeys(("K20", "K21", "K22", "K23", "K24", "K25"), 5),
           **dict.fromkeys(("K14w", "K16p", "K17p", "K18p"), 6)}
 # kernels written for the card that port no TPU kernel: the change that added each
-NEW = {"K3g": 23}
+NEW = {"K3g": 23, "K26": 24}
 REDESIGNED = {"K14": (7, 1.6638), "K14w": (7, 3.8402), "K16": (21, 0.2552),
               "K16p": (21, 0.2564), "K18": (21, 1.1170), "K18p": (21, 1.0512),
               "K6": (8, 0.5603), "K7": (8, 0.5615), "K8": (8, 1.8192),
@@ -1059,6 +1067,50 @@ def phase_cke_group(dev, card) -> dict:
                         **here)}
 
 
+def phase_cube(dev, card) -> dict:
+    """K26 as the benchmark cell homme.hv_cube runs it: one step over the
+    ne30np4 cube (5,400 elements, 40 tracers x 72 levels, f32, rrearth
+    0.1) with A² and with A, against its plain version within the
+    registered 5e-5; timed beside its bound (the state in and out once, the
+    operator, W and the map; the bf16x3 apply and the cube DSS's least) and
+    the plain version.  Returns K26's row of PERF.md's kernel table."""
+    import torch
+
+    from cdk_torch.core.config import BiharmonicConfig
+    from cdk_torch.kernels.biharmonic import cube
+    from cdk_torch.kernels.biharmonic import dss_cube as dc
+    from cdk_torch.kernels.biharmonic import problem as bp
+    from cdk_torch.kernels.biharmonic.operator import precompose_operator
+
+    cfg = BiharmonicConfig(nelemd=5400, qsize=40, nlev=72, rrearth=0.1,
+                           dtype="float32", device_init=True)
+    d = bp.init_data(cfg, dev)
+    L = dc.build_element_operator(d.dvv, d.dinv, d.spheremp, d.tensorvisc, 0.1)
+    A2 = precompose_operator(L)
+    amap = cube.build_map(cfg.nelemd, dev)
+    w = dc.dss_cube_weights(d.spheremp, amap).contiguous()
+    t = bp.lane_of(d.qtens)
+    errs = []
+    for name, op in (("A2", A2), ("A", L)):
+        out, ref = dc.dss_cube_step(op, amap, w, t), dc.dss_cube_step_plain(op, amap, w, t)
+        torch.cuda.synchronize()
+        errs.append((name, *errors(out, ref, "l2")))
+        del out, ref
+    ms = timed_ms(lambda: dc.dss_cube_step(A2, amap, w, t), REPS)
+    plain_ms = timed_ms(lambda: dc.dss_cube_step_plain(A2, amap, w, t), 3)
+    cols = cfg.nelemd * cfg.ncol
+    here = bound((t, t, A2, w, amap), **apply_ops(cols, "bf16x3", 1, CUBE_DSS))
+    print(f"[3 K26] homme_ne30np4_cube {cfg.nelemd}x{cfg.ncol} float32, one step: "
+          + ", ".join(f"{n} rel_l2 {r:.3e} max_abs {m:.3e} of {b:.3e}" for n, r, m, b in errs)
+          + f" (gate 5e-05); kernel {ms:.4f} ms; bound {here['bound_ms']:.4f} ms "
+          f"({here['bound_by']}, {100 * here['bound_ms'] / ms:.1f} %); plain {plain_ms:.4f} ms "
+          f"[{card}]")
+    if not all(r < 5e-5 and b > 0 for _, r, _, b in errs):
+        fail(f"K26 on the ne30np4 cube: {errs}")
+    return {"K26": dict(max_abs_err=max(m for _, _, m, _ in errs), ms=ms,
+                        plain_ms=plain_ms, **here)}
+
+
 def phase_dss_kernels(dev, card):
     """K14, K19 and the rowchain kernels K15-K18 against their plain
     versions: each kernel's single launch at the real radius, the launch
@@ -1677,6 +1729,9 @@ def phase_main(dev, card, ledger: SizeLedger):
          production_config("biharmonic_dss2d"),
          ["reference_jnp", "fused_operator_rowchain_sq_x3",
           "fused_operator_rowchain_sq"]),
+        ("biharmonic_dss_cube", "production f32",
+         production_config("biharmonic_dss_cube"),
+         ["reference_jnp", "fused_operator_cube_sq_x3"]),
         ("cke", "shipped f64", CkeConfig(dtype="float64"),
          list(registry.variants("cke"))),
         ("cke", "production f32", production_config("cke"),
@@ -2164,12 +2219,14 @@ def main() -> int:
     phase_few_slices(dev, card)
     rows.update(phase_cke_kernels(dev, card))
     rows.update(phase_dss_kernels(dev, card))
+    rows.update(phase_cube(dev, card))
     phase_depth_sweep(dev, card)
     rows.update(phase_masked_kernels(dev, card))
     rows.update(phase_dist_dss_kernels(dev, card))
 
     from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
     from cdk_torch.kernels.biharmonic.dss2d_resident import dss2d_resident
+    from cdk_torch.kernels.biharmonic.dss_cube import dss_cube_step
     from cdk_torch.kernels.biharmonic.dss_resident import (
         dss_resident,
         dss_resident_window,
@@ -2198,7 +2255,8 @@ def main() -> int:
                 "K9": advect_hoisted_resident, "K10": advect_lanes,
                 "K11": cke_staged, "K12": cke_onehot, "K13": cke_lanegather,
                 "K14": dss_resident, "K15": rc.rowchain_bridge_in,
-                "K17": rc.rowchain_bridge_out, "K19": dss2d_resident}
+                "K17": rc.rowchain_bridge_out, "K19": dss2d_resident,
+                "K26": dss_cube_step}
     def counts(wrappers, step, one, deep):
         """Each wrapper's launches, and the rowchain step's (`step`) split
         by depth: `one` at depth 1, `deep` the same kernel deeper; and as
@@ -2320,6 +2378,10 @@ def main() -> int:
                           ("K25", "mpdata_masked_kloop_split", 605)):
         meta[k] = dict(name=name, source="cdk_torch/csrc/mpdata_masked.cu",
                        replaces=f"cdk_tpu/kernels/mpdata/pallas_masked.py:{line}")
+    # K26, the cube's DSS step, which replaces no TPU kernel
+    meta["K26"] = dict(name="biharmonic_dss_cube", source="cdk_torch/csrc/biharmonic_dss_cube.cu",
+                       replaces="none (the DSS over HOMME's cubed sphere; the JAX package "
+                                "assembles over a ring or a torus only)")
     order = sorted(meta, key=lambda k: (int(k[1:].rstrip("pwg")), k))
     kernels = [dict(name=meta[k]["name"], route="cuda", source=meta[k]["source"],
                     replaces=meta[k]["replaces"], launches=launches[k],
@@ -2330,8 +2392,8 @@ def main() -> int:
                     **{"library_ms": None, **rows[k]},
                     **({"redesigned": REDESIGNED[k][0]} if k in REDESIGNED else {}))
                for k in order]
-    if len(kernels) != 30:
-        fail(f"{len(kernels)} kernels described, want all 30")
+    if len(kernels) != 31:
+        fail(f"{len(kernels)} kernels described, want all 31")
     print(f"[7 wall] {time.perf_counter() - t0:.1f} s, build included")
     for k, row in zip(order, kernels):
         print(f"[7 table] {table_row(k, row)}")

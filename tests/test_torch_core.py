@@ -118,27 +118,36 @@ def test_registry_factory_forms():
 
 
 def test_registered_flags_match_jax():
-    """The port registers the JAX package's (kernel, variant) names, all 49
-    of them, and each port variant carries the flags of the JAX variant of
-    the same name."""
+    """The port registers every (kernel, variant) name of the JAX package,
+    all 49 of them, each with the flags of the JAX variant of the same
+    name, and beside them its own cubed-sphere family and its two
+    variants, which the JAX package has not: 51 in all."""
     import cdk_torch.kernels  # noqa: F401
     import cdk_tpu.kernels  # noqa: F401
     from cdk_tpu.core import registry as jreg
 
     names = {k: sorted(treg.variants(k)) for k in treg.kernels()}
-    assert names == {k: sorted(jreg.variants(k)) for k in jreg.kernels()}
-    assert sum(map(len, names.values())) == 49
+    jax_names = {k: sorted(jreg.variants(k)) for k in jreg.kernels()}
+    assert {k: names[k] for k in jax_names} == jax_names
+    assert sum(map(len, jax_names.values())) == 49
+    own = {k: v for k, v in names.items() if k not in jax_names}
+    assert own == {"biharmonic_dss_cube": ["fused_operator_cube_sq_x3",
+                                           "reference_jnp"]}
+    assert sum(map(len, names.values())) == 51
     assert names["mpdata"] == [
         "pallas_fused", "pallas_hoisted", "pallas_lanes", "pallas_packed",
         "pallas_packed_bf16", "pallas_resident", "pallas_xmajor",
         "reference_jnp"]
     flags = ("supports_f64", "fast_math", "experimental", "verify_tol",
              "requires_tpu")
-    for kernel, vs in names.items():
+    for kernel, vs in jax_names.items():
         for name in vs:
             tv, jv = treg.get(kernel, name), jreg.get(kernel, name)
             assert [getattr(tv, f) for f in flags] == [
                 getattr(jv, f) for f in flags], (kernel, name)
+    cube = treg.get("biharmonic_dss_cube", "fused_operator_cube_sq_x3")
+    assert [getattr(cube, f) for f in flags] == [False, False, False, 5e-5,
+                                                 False]
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -229,6 +238,7 @@ def test_build_names_and_refuses_without_nvcc(tmp_path, monkeypatch):
     cu = sorted(tbuild.CSRC.glob("*.cu"))
     assert [p.name for p in cu] == ["biharmonic_dss2d_resident.cu",
                                     "biharmonic_dss2d_rowchain.cu",
+                                    "biharmonic_dss_cube.cu",
                                     "biharmonic_dss_resident.cu",
                                     "biharmonic_fused.cu",
                                     "biharmonic_resident.cu", "cke_group.cu",

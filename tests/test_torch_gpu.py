@@ -1441,3 +1441,65 @@ def test_k5_and_the_dist_torus_keep_the_lane_load(cuda):
     assert _natural_loads() == before
     assert bres.apply_operator_pallas.launches == launches[0] + 2
     assert rc.rowchain_bridge_in.launches > launches[1]
+
+
+@pytest.mark.parametrize("ne,ncol", [(1, 5), (2, 8), (3, 39), (2, 200)])
+def test_dss_cube_kernel_matches_plain(cuda, ne, ncol):
+    """K26 against its plain version on cubes of ne 1-3, with A and A² as
+    the operator, at column counts of both load widths (a column a lane
+    where ncol is not a multiple of 4; 16-byte rows, with a ragged chunk,
+    where it is) and from a t that starts off 16-byte alignment: within
+    the bf16x3 gate, one launch and one pass a call."""
+    from cdk_torch.kernels.biharmonic import cube
+    from cdk_torch.kernels.biharmonic import dss_cube as dc
+
+    e = 6 * ne * ne
+    gen = torch.Generator(device=cuda).manual_seed(ne * 1000 + ncol)
+    sph = torch.rand((e, 4, 4), generator=gen, device=cuda) + 0.5
+    L = torch.rand((e, 16, 16), generator=gen, device=cuda) / 4
+    amap = cube.build_map(e, cuda)
+    w = dc.dss_cube_weights(sph, amap).contiguous()
+    buf = torch.rand(e * 16 * ncol + 1, generator=gen, device=cuda)
+    for t in (buf[:-1].view(e, 16, ncol), buf[1:].view(e, 16, ncol)):
+        for op in (L, precompose_operator(L)):
+            launches = dc.dss_cube_step.launches
+            passes = trace.counts().get("cube_state_passes", 0)
+            got = dc.dss_cube_step(op, amap, w, t)
+            torch.cuda.synchronize()
+            assert dc.dss_cube_step.launches == launches + 1
+            assert trace.counts()["cube_state_passes"] == passes + 1
+            assert rel_l2(got, dc.dss_cube_step_plain(op, amap, w, t)) < 5e-5
+
+
+def test_dss_cube_loop_on_the_card(cuda):
+    """The cube champion's loop on the card: K1 once from the state where
+    it lies, K26 once a step, seven passes for six steps, the set-up kept;
+    within the gate of the reference chained at float64, and every variant
+    of the family through `run_kernel`."""
+    import dataclasses
+
+    from cdk_torch.kernels.biharmonic import dss_cube as dc
+
+    cfg = with_overrides(BiharmonicConfig(), nelemd=24, nlev=4, qsize=3,
+                         dtype="float32", rrearth=0.1)
+    data = bproblem.init_data(cfg).to(cuda)
+    _, _, loop = registry._materialize(
+        registry.get("biharmonic_dss_cube", "fused_operator_cube_sq_x3"), cfg, data)
+    before = trace.counts()
+    k1, k26 = bres.bd8_resident.launches, dc.dss_cube_step.launches
+    got = loop(data, 6)
+    torch.cuda.synchronize()
+    after = trace.counts()
+    assert (bres.bd8_resident.launches - k1, dc.dss_cube_step.launches - k26) == (1, 6)
+    assert after["cube_state_passes"] - before.get("cube_state_passes", 0) == 7
+    assert after["prepare_reuses"] - before.get("prepare_reuses", 0) == 1
+    ref = registry.get("biharmonic_dss_cube", "reference_jnp").fn(cfg)
+    d64 = data.to(torch.float64)
+    q = d64.qtens
+    for _ in range(6):
+        q = ref(dataclasses.replace(d64, qtens=q))
+    assert rel_l2(got, q) < 5e-5
+    results = run_kernel("biharmonic_dss_cube", cfg, iters=2, trials=1, quiet=True,
+                         device=cuda)
+    assert [r.variant for r in results] == ["reference_jnp", "fused_operator_cube_sq_x3"]
+    assert all(r.ok for r in results), results

@@ -33,6 +33,7 @@ EXPECTED = {
     "cdk_cke_staged_f32": "PPPPPPIIIDP",
     "cdk_cke_staged_f64": "PPPPPPIIIDP",
     "cdk_dss2d_resident_f32": "PPPPIIIIIP",
+    "cdk_dss_cube_f32": "PPPPPIIP",
     "cdk_dss2d_resident_f64": "PPPPIIIIP",
     "cdk_dss_resident_f32": "PPPPPIIIIIP",
     "cdk_dss_resident_f64": "PPPPPIIIIP",
@@ -123,7 +124,7 @@ def test_every_kernel_module_launches_through_build():
         "chip_smoke.py",
         *(kernels + f"biharmonic/{m}.py" for m in (
             "resident", "fused", "dss_resident", "dss2d_resident",
-            "dss2d_rowchain")),
+            "dss2d_rowchain", "dss_cube")),
         *(kernels + f"mpdata/{m}.py" for m in ("launch", "lanes", "masked")),
         *(kernels + f"cke/{m}.py" for m in ("rows", "group", "staged",
                                             "onehot", "lanegather"))}

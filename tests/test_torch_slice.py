@@ -209,7 +209,8 @@ def test_cli_list_prints_the_five_variants(listed):
 
 def test_cli_list_shows_the_cke_variants(listed):
     assert list(listed) == ["biharmonic", "biharmonic_dss",
-                            "biharmonic_dss2d", "cke", "mpdata"]
+                            "biharmonic_dss2d", "biharmonic_dss_cube", "cke",
+                            "mpdata"]
     assert listed["cke"] == [
         "reference_jnp", "gather_peradv", "gather_selfold", "onehot_mxu",
         "onehot_mxu_bf16", "pallas_lanegather", "pallas_onehot",
@@ -217,9 +218,14 @@ def test_cli_list_shows_the_cke_variants(listed):
 
 
 def test_cli_list_shows_33_variants_and_the_dss_families(listed):
-    """49 variants in all, the JAX package's: the DSS families as before,
-    and the 14 biharmonic and mpdata variants ported since."""
-    assert sum(map(len, listed.values())) == 49
+    """51 variants in all: the JAX package's 49 (the DSS families as
+    before, and the 14 biharmonic and mpdata variants ported since) and the
+    port's own cubed-sphere family's two."""
+    assert sum(map(len, listed.values())) == 51
+    assert sum(len(v) for k, v in listed.items()
+               if k != "biharmonic_dss_cube") == 49
+    assert listed["biharmonic_dss_cube"] == [
+        "reference_jnp", "fused_operator_cube_sq_x3"]
     assert listed["biharmonic_dss"] == [
         "reference_jnp", "fused_operator", "fused_operator_f32",
         "fused_operator_bf16", "fused_operator_bd8",

@@ -23,6 +23,7 @@ from cdk_torch.dist import mpdata as dist_mp
 from cdk_torch.kernels.biharmonic import dss2d_rowchain as rc
 from cdk_torch.kernels.biharmonic import problem as bp
 from cdk_torch.kernels.biharmonic.dss2d_resident import dss2d_resident
+from cdk_torch.kernels.biharmonic.dss_cube import dss_cube_step
 from cdk_torch.kernels.biharmonic.dss_resident import (
     dss_resident,
     dss_resident_window,
@@ -70,7 +71,7 @@ WRAPPERS = {"K1": bd8_resident, "K2": advect_resident, "K3": cke_rows,
             "K22": masked.masked_step_xmajor,
             "K23": masked.masked_step_xmajor_split,
             "K24": masked.masked_kloop_xmajor,
-            "K25": masked.masked_kloop_xmajor_split}
+            "K25": masked.masked_kloop_xmajor_split, "K26": dss_cube_step}
 
 
 def _host_spans(prof) -> dict:
